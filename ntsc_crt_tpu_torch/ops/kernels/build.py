@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/*.cu`` compile with nvcc for Hopper (``sm_90a``) into one shared
+library with a plain C interface, ``.cuda_build/<hash>/libntsc_kernels.so``
+beside the package, at first use.  The hash covers the sources and the
+flags, so an edited kernel rebuilds and an unchanged one loads from the
+cache.  The library is bound with ctypes: every pointer and the stream are
+``c_void_p`` (a plain int argument would cut a 64-bit pointer), every entry
+point returns ``cudaGetLastError()`` and ``launch`` raises if that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / ".cuda_build"
+LIB_NAME = "libntsc_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# entry point -> argument kinds: "p" pointer or stream, "i" C int
+_SIGNATURES = {
+    "ntsc_encode_rows": "ppppppp" + "i" * 11 + "p",
+    "ntsc_hsync_chase": "pppp" + "i" * 7 + "p",
+    "ntsc_decode_rows": "pppppppp" + "i" * 8 + "p",
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+
+_lib = None
+# filled by build(): seconds nvcc took (0.0 on a cache hit) and its output
+last_build = {"seconds": None, "log": "", "path": None}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (PATH or /usr/local/cuda)")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless a library built from the same sources and
+    flags exists; returns its path."""
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(SRC_DIR.iterdir()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    out_dir = BUILD_DIR / h.hexdigest()[:16]
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        last_build.update(seconds=0.0, log="cached", path=lib)
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    os.replace(tmp, lib)  # atomic: another process never loads half a file
+    last_build.update(seconds=seconds, log=res.stdout + res.stderr, path=lib)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, kinds in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [_CTYPES[k] for k in kinds]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call entry point `name`; raise if the launch reported a CUDA error."""
+    rc = getattr(library(), name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current stream on `device`, as the kernels take it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+          device: torch.device) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and `shape`
+    on `device`."""
+    if t.device != device or device.type != "cuda":
+        raise ValueError(f"{name}: expected a tensor on {device}, "
+                         f"got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
