@@ -15,11 +15,12 @@
 // are read, so bandwidth plays no part.  At batch 1 this is one thread —
 // a pure latency kernel.
 //
-// Left for later: the ccf carrier EMA (ops/pallas/ccf_scan.py) walks the
-// same lines right after this chase and still runs as a per-line torch loop;
-// fusing it here removes ~8k small launches per step.  The TPU kernel's
-// word packing, rebase and funnel exist only for the TPU's layout: here the
-// window is a direct indexed load.
+// Left for later: the ccf carrier EMA (K4, csrc/ccf.cu) walks the same
+// lines right after this chase, one launch later, once the burst windows
+// are gathered in torch; fusing the two waits for a trace that shows the
+// gather or the extra launch matter.  The TPU kernel's word packing, rebase
+// and funnel exist only for the TPU's layout: here the window is a direct
+// indexed load.
 #include <cuda_runtime.h>
 
 #include "int32.cuh"

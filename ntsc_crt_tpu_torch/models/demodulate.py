@@ -4,12 +4,13 @@ Counterpart of ``ntsc_crt_tpu/models/demodulate.py`` (crt_demodulate,
 crt_core.c:291-666), batch-first, for 4-sample chroma systems with the
 default three-band EQ.  Each stage keeps one formulation, the plain one:
 
-1. **Noise injection** — the serial LCG in closed form (ops/lcg.py).
+1. **Noise injection** — the serial LCG in closed form (ops/lcg.py), or on
+   the VHS presets the crt_rand tracking noise: closed forms over regions A
+   and C and the serial region-B march in kernel K5.
 2. **VSYNC recovery** — running sums over the candidate rows and the first
    crossing below the threshold (crt_core.c:369-397).
 3. **Per-line sequential state** — the hsync chase (kernel K3), the burst
-   gather and the ccf carrier EMA (a per-line torch loop), then the decode
-   waves.
+   gather and the ccf carrier EMA (kernel K4), then the decode waves.
 4. **Line decode** — alignment, Y/I/Q, 3-band EQ and scan conversion in
    kernel K2.
 5. **Row placement** — each output row takes the last line that covers it,
@@ -24,10 +25,11 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
-from ntsc_crt_tpu.models.systems import SystemConfig
+from ntsc_crt_tpu_torch.models.systems import SystemConfig
 from ntsc_crt_tpu_torch.ops import fastpath, filters, lcg
-from ntsc_crt_tpu_torch.ops.fixedpoint import cdiv, crem, posmod, sincos14
-from ntsc_crt_tpu_torch.ops.kernels import decode, hsync
+from ntsc_crt_tpu_torch.ops.fixedpoint import (cdiv, crem, np_sincos14,
+                                               posmod, sincos14)
+from ntsc_crt_tpu_torch.ops.kernels import ccf, decode, hsync, vhs
 from ntsc_crt_tpu_torch.models.modulate import _b
 
 Knob = Union[int, torch.Tensor]
@@ -84,6 +86,106 @@ def _inject_noise(cfg: SystemConfig, analog2d: torch.Tensor, rn: torch.Tensor,
     return s.clamp(-127, 127).to(torch.int8), rn_out
 
 
+def _vhs_regions(cfg: SystemConfig):
+    """(n0, nB, nC): region A is samples i < n0, where cond1
+    `i > N - H*(6 + rand()%20)` can never pass (2 calls a sample); B the
+    next 19*H samples, where it may (the serial part); C the last 6H - 1,
+    where it always does (3 calls a sample)."""
+    N, H = cfg.input_size, cfg.hres
+    n0 = N - 25 * H + 1
+    nB = 19 * H
+    return n0, nB, N - n0 - nB
+
+
+@functools.lru_cache(maxsize=8)
+def _vhs_tables(cfg: SystemConfig, device: torch.device):
+    """The VHS noise's constant tables on `device`: region A's first-call
+    stream factors mod 2^25 (the noise byte reads bits 17..24 of the state,
+    and 25-bit factors keep the product inside int64); region C's 3-call
+    factors; the band tests' thresholds over regions B+C; and the band
+    sinusoid `cs >> 8` for band_line 10..17 (crt_core.c:353-356), (8, nBC).
+    Also the host ints that close regions A and C."""
+    N, H = cfg.input_size, cfg.hres
+    n0, nB, nC = _vhs_regions(cfg)
+    apow, csum = lcg._lcg_tables(2 * n0, lcg.RAND_A, lcg.RAND_B)
+    apow3, csum3 = lcg._lcg_tables(3 * nC, lcg.RAND_A, lcg.RAND_B)
+    a3 = np.concatenate([np.ones(1, np.uint32), apow3[2::3]])[:nC]  # A^{3k}
+    c3 = np.concatenate([np.zeros(1, np.uint32), csum3[2::3]])[:nC]
+    iBC = np.arange(n0, N, dtype=np.int64)
+    cs = np.stack([np_sincos14(iBC * bl // H * 8192 // 180)[1] >> 8
+                   for bl in range(10, 18)])
+    m25 = (1 << 25) - 1
+    t = lambda a, dt=torch.int64: torch.as_tensor(  # noqa: E731
+        np.asarray(a).astype(np.int64), device=device).to(dt)
+    return dict(
+        a25=t(apow[::2] & m25), c25=t(csum[::2] & m25),
+        a3=t(a3), c3=t(c3),
+        thr1=t(N - 6 * H - iBC, torch.int32), thr2=t(N - iBC, torch.int32),
+        cs=t(cs, torch.int32),
+        closeA=(int(apow[-1]), int(csum[-1])),
+        closeC=(int(apow3[-1]), int(csum3[-1])))
+
+
+def _inject_noise_vhs(cfg: SystemConfig, analog_flat: torch.Tensor,
+                      randstate: torch.Tensor, noise: torch.Tensor):
+    """VHS tracking noise (crt_core.c:343-366 under CRT_VHS_NOISE): a
+    sinusoidal band wobbles over the last ~16 lines, driven by crt_rand.
+    analog_flat int8 (B, N); randstate and noise int32 (B,).  Returns
+    (noisy int8 (B, N), randstate' int32 (B,), rn' = the last rand value
+    int32 (B,), crt_core.c:359,367).
+
+    The rand() calls per sample depend on the draws (C's && short circuit),
+    so the stream is serial; it splits three ways (see _vhs_regions): A and
+    C are closed forms over the LCG tables, B is the serial march of kernel
+    K5, and every noise value of B and C follows in parallel from the entry
+    states K5 emits."""
+    B = analog_flat.shape[0]
+    H = cfg.hres
+    n0, nB, nC = _vhs_regions(cfg)
+    tab = _vhs_tables(cfg, analog_flat.device)
+    head_st = lcg.crt_rand_step(randstate)                # call 0: band line
+    band_line = (crem(lcg.crt_rand_out(head_st), 8) - 4) + 14   # 10..17
+    st0 = lcg.u32(head_st)
+
+    # region A: the first call of each sample, closed form; the byte is
+    # bits 17..24 of the state, so the stream is only needed mod 2^25
+    streamA = tab["a25"][None] * (st0 & ((1 << 25) - 1))[:, None]
+    streamA.add_(tab["c25"][None]).bitwise_right_shift_(17)
+    byteA = streamA.bitwise_and_(0xFF).to(torch.int32).sub_(0x7F)
+    del streamA
+    sA = byteA.mul_(noise[:, None]).bitwise_right_shift_(8)
+    sA.add_(analog_flat[:, :n0])
+    out = torch.empty_like(analog_flat)
+    out[:, :n0] = sA.clamp_(-127, 127)
+    del sA, byteA
+    stA = lcg.to_i32(lcg.mul_u32(tab["closeA"][0], st0) + tab["closeA"][1])
+
+    # region B: the serial march (K5); region C's entry state is one more
+    # step from the last entry
+    entB = vhs.vhs_region_b_entries(stA, n_steps=nB, H=H)   # (nB, B)
+    stC0 = vhs.step(lcg.u32(entB[-1]), nB - 1, H)
+
+    # region C: 3 calls a sample, closed form
+    entC = (lcg.mul_u32(tab["a3"][None], stC0[:, None])
+            + tab["c3"][None]) & lcg.MASK32
+    st_final = lcg.to_i32(lcg.mul_u32(tab["closeC"][0], stC0)
+                          + tab["closeC"][1])
+
+    # regions B+C: every draw from the entry states, in parallel
+    ent = torch.cat([lcg.u32(entB).T, entC], dim=1)       # (B, nB + nC)
+    r1 = lcg.crt_rand_out(lcg.mul_u32(lcg.RAND_A, ent) + lcg.RAND_B)
+    st2 = (lcg.mul_u32(vhs.A2, ent) + vhs.C2) & lcg.MASK32
+    m1 = ((st2 >> 1) % 20).to(torch.int32)
+    cond1 = m1 * H > tab["thr1"][None]
+    rC = lcg.crt_rand_out(lcg.mul_u32(lcg.RAND_A, st2) + lcg.RAND_B)
+    cond2 = H * (1 + rC % 8) < tab["thr2"][None]          # call 3 if cond1
+    csb = tab["cs"][(band_line - 10).long()]              # (B, nB + nC)
+    nn = torch.where(cond1 & cond2, csb, noise[:, None])
+    sBC = analog_flat[:, n0:] + (((((r1 >> 16) & 0xFF) - 0x7F) * nn) >> 8)
+    out[:, n0:] = sBC.clamp_(-127, 127)
+    return out, st_final, r1[:, -1]
+
+
 # ---------------------------------------------------------------------------
 # Sync recovery
 # ---------------------------------------------------------------------------
@@ -111,30 +213,6 @@ def _find_vsync(cfg: SystemConfig, inp2d: torch.Tensor, vsync: torch.Tensor):
     j = torch.where(exists, torch.gather(first_j, 1, row)[:, 0], cfg.hres)
     field = (j > cfg.hres // 2).to(torch.int32)
     return line.to(torch.int32), field
-
-
-def _ccf_ema(per_cls: torch.Tensor, vper_l: torch.Tensor,
-             active_l: torch.Tensor, ccf0: torch.Tensor):
-    """Fold each active line's burst into the carrier EMA of its vertical
-    phase, line after line (crt_core.c:452-466): ccr = ccr*127/128 + burst
-    sample, m times per line.  per_cls int32 (B, L, m, CC); vper_l (B, L);
-    active_l bool (B, L); ccf0 int32 (B, VP, CC).  Returns (ccf' (B, VP, CC),
-    ccr after every line (B, L, CC))."""
-    B, L, m, CC = per_cls.shape
-    bi = torch.arange(B, device=per_cls.device)
-    vper_l = vper_l.long()
-    ccf = ccf0.clone()
-    ccr_l = torch.empty((B, L, CC), dtype=torch.int32, device=per_cls.device)
-    for l in range(L):
-        vp = vper_l[:, l]
-        ccr = ccf[bi, vp]
-        new = ccr
-        for mm in range(m):
-            new = cdiv(new * 127, 128) + per_cls[:, l, mm]
-        ccr = torch.where(active_l[:, l, None], new, ccr)
-        ccf[bi, vp] = ccr
-        ccr_l[:, l] = ccr
-    return ccf, ccr_l
 
 
 def _line_scan(cfg: SystemConfig, inp2d, hsync0, ccf0, vsync, hue_sn, hue_cs,
@@ -185,7 +263,8 @@ def _line_scan(cfg: SystemConfig, inp2d, hsync0, ccf0, vsync, hue_sn, hue_cs,
     m = cfg.burst_len // CC
     col_for_cls = [(k - cfg.cb_beg) % CC for k in range(CC)]
     per_cls = bvals.reshape(B, L, m, CC)[..., col_for_cls]
-    ccf_f, ccr_l = _ccf_ema(per_cls, vper_l, active_l, ccf0)
+    ccf_f, ccr_l = ccf.ccf_ema(per_cls.contiguous(), vper_l.contiguous(),
+                               active_l.contiguous(), ccf0.contiguous())
 
     # decode waves (4-sample IQ extraction, crt_core.c:471-479)
     phasealign = posmod(hsync_l, CC)
@@ -220,14 +299,16 @@ def demodulate_core(
     noise,
     mon: MonitorParams,
     *,
+    randstate=None,           # (B,) crt_rand state, read on VHS presets
     v_fac: int = 0,
 ) -> tuple[torch.Tensor, dict]:
     """One decode pass.  Returns (rgb uint8 (B, outh, outw, 3), new state
-    dict with keys hsync/vsync/ccf/rn)."""
-    if cfg.cc_samples != 4 or cfg.vhs_noise:
+    dict with keys hsync/vsync/ccf/rn/randstate; randstate comes back as
+    given where the preset draws no VHS noise)."""
+    if cfg.cc_samples != 4:
         raise NotImplementedError(
-            f"{cfg.name}: the port decodes 4-sample, noise-LCG systems only "
-            "(ROADMAP Queue 1, M7/M8)")
+            f"{cfg.name}: the port decodes 4-sample chroma systems only "
+            "(ROADMAP Queue 1, M7)")
     B, outh, outw = out_prev.shape[0], out_prev.shape[1], out_prev.shape[2]
     dev = analog.device
     L = cfg.lines
@@ -240,7 +321,12 @@ def demodulate_core(
     hue_sn, hue_cs = sn >> 11, cs >> 11                   # crt_core.c:318-320
     saturation = _b(mon.saturation, B, dev)
 
-    inp2d, rn_new = _inject_noise(cfg, analog, _b(rn, B, dev), noise)
+    if cfg.vhs_noise:
+        inp_flat, randstate, rn_new = _inject_noise_vhs(
+            cfg, analog.reshape(B, -1), _b(randstate, B, dev), noise)
+        inp2d = inp_flat.reshape(analog.shape)
+    else:
+        inp2d, rn_new = _inject_noise(cfg, analog, _b(rn, B, dev), noise)
     vsync_new, field = _find_vsync(cfg, inp2d, _b(vsync, B, dev))
     ratio = ((outh << 16) // cfg.lines + 32768) >> 16
     field_px = field * (ratio // 2)
@@ -261,7 +347,7 @@ def demodulate_core(
     out_new = _place_rows(rgb, out_prev, beg_l, end_l, active_l, mon.blend,
                           _b(mon.scanlines, B, dev), outh)
     return out_new, dict(hsync=hsync_new, vsync=vsync_new, ccf=ccf_new,
-                         rn=rn_new)
+                         rn=rn_new, randstate=randstate)
 
 
 def _place_rows(rgb, out_prev, beg_l, end_l, active_l, blend, scanlines,

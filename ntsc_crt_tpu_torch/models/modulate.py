@@ -1,7 +1,8 @@
 """Modulator: digital RGB frames -> sampled analog NTSC composite fields.
 
 Counterpart of ``ntsc_crt_tpu/models/modulate.py``, NTSC encoder family
-only (``modulate_rgb``, crt_ntsc.c:128-330).  Batch-first like the JAX
+only (``modulate_rgb``, crt_ntsc.c:128-330, and ``modulate_vhs`` on top of
+it, crt_ntscvhs.c).  Batch-first like the JAX
 package: every tensor carries a leading frame dim.  Per frame the field is
 built in three phases:
 
@@ -21,9 +22,9 @@ import functools
 import numpy as np
 import torch
 
-from ntsc_crt_tpu.models.systems import CHROMA_CHECKERED, SystemConfig
-from ntsc_crt_tpu_torch.ops import filters
-from ntsc_crt_tpu_torch.ops.fixedpoint import cdiv, i32, sincos14
+from ntsc_crt_tpu_torch.models.systems import CHROMA_CHECKERED, SystemConfig
+from ntsc_crt_tpu_torch.ops import filters, lcg
+from ntsc_crt_tpu_torch.ops.fixedpoint import cdiv, crem, i32, sincos14
 from ntsc_crt_tpu_torch.ops.kernels import encode
 
 
@@ -234,3 +235,52 @@ def modulate_rgb(
         (ccmodQ * ph[:, None]).contiguous(), gain, base, coefs=coefs,
         xo_mod=xo % CC, destw=destw)
     return _store_active(analog, ire, xo, yo), ccf
+
+
+# ---------------------------------------------------------------------------
+# NTSC-VHS (crt_ntscvhs.c)
+# ---------------------------------------------------------------------------
+
+
+def modulate_vhs(
+    cfg: SystemConfig,
+    analog: torch.Tensor,     # int8 (B, VRES, HRES)
+    img: torch.Tensor,        # uint8 (B, h, w, 3)
+    randstate: torch.Tensor,  # (B,) crt_rand state, shared with the decoder
+    *,
+    field, frame, hue, as_color=1, xoffset: int = 0, yoffset: int = 0,
+    black_point=0, white_point=100, raw: bool = False,
+    do_aberration=0, do_bloom: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """crt_ntscvhs.c:128-337: the NTSC encoder, then head switching — with
+    do_aberration on (an int or a (B,) tensor), one crt_rand draw picks
+    6..17 bottom lines that lose their sync tips (:234-238) — and a zeroed
+    ccf export (:330-335).  The per-frame hsync reset (:258) is the
+    pipeline's.  Returns (analog', ccf_zero, randstate')."""
+    if do_bloom:
+        raise NotImplementedError(
+            f"{cfg.name}: CRT_DO_BLOOM sizing is not ported "
+            "(ROADMAP Queue 1, M8)")
+    analog, _ = modulate_rgb(
+        cfg, analog, img, field=field, frame=frame, hue=hue,
+        as_color=as_color, xoffset=xoffset, yoffset=yoffset,
+        black_point=black_point, white_point=white_point, raw=raw)
+    dev = analog.device
+    B = analog.shape[0]
+    do_ab = _b(do_aberration, B, dev) != 0
+    rs = _b(randstate, B, dev)
+    rs_next = lcg.crt_rand_step(rs)
+    aberration = torch.where(
+        do_ab, (crem(lcg.crt_rand_out(rs_next), 12) - 8) + 14, 0)
+    randstate = torch.where(do_ab, rs_next, rs)
+
+    # analog is modulate_rgb's fresh buffer, so the kill writes in place
+    V = cfg.vres
+    rows = torch.arange(V, dtype=torch.int32, device=dev)[None, :]
+    _, _, _, vrows = _field_constants(cfg, dev)
+    kill = vrows[None, :] & (rows >= V - aberration[:, None])   # (B, V)
+    analog[:, :, :cfg.bw_beg].masked_fill_(kill[:, :, None], cfg.blank_level)
+
+    ccf = torch.zeros((B, cfg.cc_vper, cfg.cc_samples), dtype=torch.int32,
+                      device=dev)
+    return analog, ccf, randstate

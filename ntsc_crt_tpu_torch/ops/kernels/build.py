@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` compile with nvcc for Hopper (``sm_90a``) into one shared
-library with a plain C interface, ``.cuda_build/<hash>/libntsc_kernels.so``
-beside the package, at first use.  The hash covers the sources and the
-flags, so an edited kernel rebuilds and an unchanged one loads from the
-cache.  The library is bound with ctypes: every pointer and the stream are
+``csrc/*.cu`` compile with nvcc for Hopper (``sm_90a``), one nvcc process
+per source, all started together, and link into one shared library with a
+plain C interface, ``.cuda_build/<hash>/libntsc_kernels.so`` beside the
+package, at first use.  The hash covers the sources and the flags, so an
+edited kernel rebuilds and an unchanged one loads from the cache.  The
+library is bound with ctypes: every pointer and the stream are
 ``c_void_p`` (a plain int argument would cut a 64-bit pointer), every entry
 point returns ``cudaGetLastError()`` and ``launch`` raises if that is not 0.
 """
@@ -26,13 +27,15 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / ".cuda_build"
 LIB_NAME = "libntsc_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # entry point -> argument kinds: "p" pointer or stream, "i" C int
 _SIGNATURES = {
     "ntsc_encode_rows": "ppppppp" + "i" * 11 + "p",
     "ntsc_hsync_chase": "pppp" + "i" * 7 + "p",
     "ntsc_decode_rows": "pppppppp" + "i" * 8 + "p",
+    "ntsc_ccf_ema": "pppppp" + "i" * 5 + "p",
+    "ntsc_vhs_region_b_entries": "pp" + "i" * 3 + "p",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 
@@ -66,16 +69,32 @@ def build() -> Path:
         last_build.update(seconds=0.0, log="cached", path=lib)
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    # nvcc tells an object by its suffix, so the process id goes before it
+    objs = [out_dir / f"{src.stem}.{os.getpid()}.o" for src in sources]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [p.communicate()[0] for p in procs]   # waits for every process
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    res = subprocess.run(link, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{' '.join(link)}\n{res.stdout}{res.stderr}")
+    seconds = time.perf_counter() - t0
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib)  # atomic: another process never loads half a file
-    last_build.update(seconds=seconds, log=res.stdout + res.stderr, path=lib)
+    last_build.update(seconds=seconds, log="".join(logs), path=lib)
     return lib
 
 

@@ -11,6 +11,10 @@ which has the closed form rn_k = A^k * rn_0 + B * (A^{k-1} + ... + 1)
 (mod 2^32), so the whole stream is one elementwise pass over two constant
 tables.  torch has no full uint32 arithmetic, so uint32 values ride int64
 masked with 0xFFFFFFFF.
+
+The VHS tracking noise draws from ``crt_rand``, the deterministic stand-in
+for libc rand() that the JAX package and its test oracle share:
+state = state*1103515245 + 12345 (mod 2^32), output = state >> 1.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import torch
 
 LCG_A = 214019
 LCG_B = 140327895
+RAND_A = 1103515245
+RAND_B = 12345
 MASK32 = 0xFFFFFFFF
 
 
@@ -53,8 +59,11 @@ def to_i32(x: torch.Tensor) -> torch.Tensor:
 
 def mul_u32(a, b: torch.Tensor) -> torch.Tensor:
     """a * b mod 2^32 for uint32 values in int64, without int64 overflow:
-    the high half of `a` contributes only its low 16 product bits."""
-    a = torch.as_tensor(a, dtype=torch.int64, device=b.device)
+    the high half of `a` contributes only its low 16 product bits.  `a` is
+    a tensor or an int; an int stays a scalar operand, since making it a
+    device tensor would copy it from the host and stall on the stream."""
+    if not torch.is_tensor(a):
+        a = int(a)
     lo = (a & 0xFFFF) * b
     hi = (((a >> 16) * b) & 0xFFFF) << 16
     return (lo + hi) & MASK32
@@ -77,3 +86,26 @@ def noise_bytes(rn0: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
                                                  device=dev)
     byte = ((stream >> 16) & 0xFF).to(torch.int32) - 0x7F
     return byte, lcg_state(rn0, n)
+
+
+def crt_rand_out(state: torch.Tensor) -> torch.Tensor:
+    """crt_rand's output, the 31-bit value state >> 1, from an int32 bit
+    pattern (or a uint32 value in int64)."""
+    return (u32(state) >> 1).to(torch.int32)
+
+
+def crt_rand_step(state: torch.Tensor) -> torch.Tensor:
+    """One crt_rand transition of int32 bit patterns, wrapping."""
+    return to_i32(mul_u32(RAND_A, u32(state)) + RAND_B)
+
+
+def crt_rand_stream(state0: torch.Tensor,
+                    n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """n sequential crt_rand() values from int32 seeds state0 (any shape):
+    (values int32 state0.shape + (n,), in [0, 2^31), final state int32)."""
+    apow, csum = _lcg_tables(n, RAND_A, RAND_B)
+    dev = state0.device
+    stream = (mul_u32(torch.as_tensor(apow.astype(np.int64), device=dev),
+                      u32(state0)[..., None])
+              + torch.as_tensor(csum.astype(np.int64), device=dev)) & MASK32
+    return crt_rand_out(stream), to_i32(stream[..., -1])

@@ -3,7 +3,7 @@
 This system has no weights: the CRT state (and the monitor knobs) is its
 only persistent data.  Both packages name its leaves alike, so a JAX
 ``CRTState._asdict()`` of numpy arrays (``np.asarray`` of each leaf) becomes
-the port's state on any device, and back.
+the port's state on any device, and back.  device=None means the CUDA card.
 """
 
 from __future__ import annotations
@@ -12,15 +12,16 @@ import numpy as np
 import torch
 
 from ntsc_crt_tpu_torch.models.demodulate import MonitorParams
-from ntsc_crt_tpu_torch.models.pipeline import CRTState
+from ntsc_crt_tpu_torch.models.pipeline import CRTState, resolve_device
 
 _DTYPES = dict(analog=torch.int8, out=torch.uint8, ccf=torch.int32,
                hsync=torch.int32, vsync=torch.int32, rn=torch.int32,
                randstate=torch.int32)
 
 
-def state_from_numpy(leaves: dict, device="cpu") -> CRTState:
+def state_from_numpy(leaves: dict, device=None) -> CRTState:
     """CRTState from a dict of numpy arrays keyed by leaf name."""
+    device = resolve_device(device)
     return CRTState(**{
         k: torch.as_tensor(np.array(leaves[k]), device=device)
         .to(_DTYPES[k]).contiguous()
@@ -32,9 +33,11 @@ def state_to_numpy(state: CRTState) -> dict:
     return {k: v.cpu().numpy() for k, v in state._asdict().items()}
 
 
-def mon_from_numpy(knobs: dict, device="cpu") -> MonitorParams:
+def mon_from_numpy(knobs: dict, device=None) -> MonitorParams:
     """MonitorParams from ints or numpy arrays; arrays become int32 tensors
     on `device`, scalars stay ints."""
+    device = resolve_device(device)
+
     def one(v):
         a = np.asarray(v)
         if a.ndim == 0:

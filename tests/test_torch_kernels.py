@@ -1,4 +1,4 @@
-"""The three kernels of the port: plain versions against the JAX kernels,
+"""The five kernels of the port: plain versions against the JAX kernels,
 and CUDA kernels against the plain versions.
 
 On the CPU each plain version (the path a CPU tensor takes) is held against
@@ -20,7 +20,7 @@ import torch
 from ntsc_crt_tpu.models.systems import NTSC
 from ntsc_crt_tpu_torch.models import demodulate as dem
 from ntsc_crt_tpu_torch.ops import filters
-from ntsc_crt_tpu_torch.ops.kernels import decode, encode, hsync
+from ntsc_crt_tpu_torch.ops.kernels import ccf, decode, encode, hsync, vhs
 
 torch.set_num_threads(1)  # the tier runs several workers on few cores
 
@@ -212,10 +212,90 @@ def test_k3_kernel_matches_plain(cuda, B):
     assert hsync.LAUNCHES == n + 1
 
 
+# --- K4 ccf_ema --------------------------------------------------------------
+
+
+def k4_inputs(seed, B, L, m, CC, VP, lim=1 << 20):
+    rng = np.random.default_rng(seed)
+    return dict(
+        per_cls=rng.integers(-lim, lim, (B, L, m, CC)).astype(np.int32),
+        vper_l=rng.integers(0, VP, (B, L)).astype(np.int32),
+        active_l=rng.random((B, L)) > 0.3,
+        ccf0=rng.integers(-lim, lim, (B, VP, CC)).astype(np.int32))
+
+
+@pytest.mark.parametrize("VP,CC,m,B,L,lim", [
+    (3, 4, 5, 7, 33, 1 << 20),      # the shapes of test_pallas_kernels.py
+    (1, 4, 5, 9, 26, 1 << 20),
+    (5, 8, 4, 17, 30, 1 << 20),
+    (3, 4, 5, 1, 40, 1 << 20),
+    (1, 4, 10, 3, 24, 1 << 30)])    # full range: ccr * 127 wraps
+def test_k4_plain_matches_jax_kernel(VP, CC, m, B, L, lim):
+    import jax.numpy as jnp
+    from ntsc_crt_tpu.ops.pallas import ccf_scan
+    x = k4_inputs(VP + CC + B + L, B, L, m, CC, VP, lim)
+    got_f, got_r = ccf.ccf_ema(**to_torch(x))
+    want_f, want_r = ccf_scan.ccf_ema(
+        *(jnp.asarray(x[k]) for k in ("per_cls", "vper_l", "active_l",
+                                      "ccf0")), interpret=True)
+    same(got_f, want_f)
+    same(got_r, want_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,VP,CC", [(1, 1, 4), (64, 1, 4), (5, 5, 5)])
+def test_k4_kernel_matches_plain(cuda, B, VP, CC):
+    x = k4_inputs(B, B, NTSC.lines, NTSC.burst_len // CC, CC, VP, 1 << 30)
+    want = ccf.ccf_ema(**to_torch(x))
+    n = ccf.LAUNCHES
+    got = ccf.ccf_ema(**to_torch(x, cuda))
+    assert ccf.LAUNCHES == n + 1
+    same(got[0], want[0])
+    same(got[1], want[1])
+
+
+# --- K5 vhs_region_b_entries ---------------------------------------------------
+
+VHS_H = 910
+
+
+def k5_seeds(seed, B):
+    """int32 bit patterns of uint32 seeds over the whole range, its ends
+    included."""
+    rng = np.random.default_rng(seed)
+    st = rng.integers(0, 2**32, B, dtype=np.uint64)
+    st[:2] = [0, 2**32 - 1][:B]
+    return st.astype(np.uint32)
+
+
+@pytest.mark.parametrize("B", [1, 5])
+def test_k5_plain_matches_jax_kernel(B):
+    import jax.numpy as jnp
+    from ntsc_crt_tpu.ops.pallas import vhs_scan
+    st0 = k5_seeds(B, B)
+    got = vhs.vhs_region_b_entries(torch.as_tensor(st0.view(np.int32)),
+                                   n_steps=19 * VHS_H, H=VHS_H)
+    want = vhs_scan.vhs_region_b_entries(jnp.asarray(st0), n_steps=19 * VHS_H,
+                                         H=VHS_H, interpret=True)
+    same(got, np.asarray(want).view(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 64])
+def test_k5_kernel_matches_plain(cuda, B):
+    st0 = torch.as_tensor(k5_seeds(B + 1, B).view(np.int32))
+    kw = dict(n_steps=19 * VHS_H, H=VHS_H)
+    want = vhs.vhs_region_b_entries(st0, **kw)
+    n = vhs.LAUNCHES
+    same(vhs.vhs_region_b_entries(st0.to(cuda), **kw), want)
+    assert vhs.LAUNCHES == n + 1
+
+
 # --- dispatch -----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["encode_rows", "decode_rows", "hsync_chase"])
+@pytest.mark.parametrize("name", ["encode_rows", "decode_rows", "hsync_chase",
+                                  "ccf_ema", "vhs_region_b_entries"])
 def test_non_cpu_tensors_never_take_the_plain_version(name):
     """Only a CPU tensor takes the plain version.  Any other tensor goes to
     the kernel path, which refuses a tensor that is not on a CUDA device
@@ -226,12 +306,19 @@ def test_non_cpu_tensors_never_take_the_plain_version(name):
         "decode_rows": lambda x: decode.decode_rows(
             **x, row0=1, coefs=dem._eq_coefs(NTSC), av_len=64, outw=48),
         "hsync_chase": lambda x: hsync.hsync_chase(**x, **K3),
+        "ccf_ema": lambda x: ccf.ccf_ema(**x),
+        "vhs_region_b_entries": lambda x: vhs.vhs_region_b_entries(
+            **x, n_steps=19 * VHS_H, H=VHS_H),
     }[name]
     x = {"encode_rows": lambda: k1_inputs(0, B=1, h=9, w=20, desth=8, cc=4),
          "decode_rows": lambda: k2_inputs(0, B=1, L=4, H=160, cc=4),
-         "hsync_chase": lambda: k3_inputs(0, B=1)}[name]()
+         "hsync_chase": lambda: k3_inputs(0, B=1),
+         "ccf_ema": lambda: k4_inputs(0, 1, 4, 10, 4, 1),
+         "vhs_region_b_entries": lambda: dict(
+             st0=k5_seeds(0, 2).view(np.int32))}[name]()
     launches = {"encode_rows": encode, "decode_rows": decode,
-                "hsync_chase": hsync}[name]
+                "hsync_chase": hsync, "ccf_ema": ccf,
+                "vhs_region_b_entries": vhs}[name]
     n = launches.LAUNCHES
     with pytest.raises(ValueError, match="expected a tensor on"):
         call({k: torch.as_tensor(v).to("meta") for k, v in x.items()})

@@ -49,7 +49,7 @@ def test_golden_ntsc_batch1():
     ref = np.load(GOLDENS)
     img = np.random.RandomState(0).randint(0, 256, (1, 240, 320, 3),
                                            np.uint8)[0]
-    st = pipeline.crt_init(NTSC, 128, 96)
+    st = pipeline.crt_init(NTSC, 128, 96, device="cpu")
     for f in (0, 1):
         st = pipeline.step(NTSC, st, torch.as_tensor(img), field=f, frame=f,
                            noise=7)
@@ -64,7 +64,7 @@ def test_golden_ntsc_batch16():
     B = 16
     imgs = torch.as_tensor(np.random.RandomState(0).randint(
         0, 256, (B, 60, 80, 3), np.uint8))
-    st = pipeline.init_batch(NTSC, B, 128, 96)
+    st = pipeline.init_batch(NTSC, B, 128, 96, device="cpu")
     zeros = torch.zeros(B, dtype=torch.int32)
     alt = torch.arange(B, dtype=torch.int32) % 2
     st = pipeline.step_batch(NTSC, st, imgs, zeros, zeros, zeros, noise=7)
@@ -84,7 +84,7 @@ def test_step_matches_jax(seed, noise, hue, as_color):
     rng = np.random.default_rng(seed)
     img = rng.integers(0, 256, (48, 64, 3)).astype(np.uint8)
     jst = jpipe.crt_init(NTSC, 128, 96)
-    st = pipeline.crt_init(NTSC, 128, 96)
+    st = pipeline.crt_init(NTSC, 128, 96, device="cpu")
     for field, frame in FRAMES:
         kw = dict(field=field, frame=frame, hue=hue, noise=noise,
                   as_color=as_color)
@@ -100,14 +100,15 @@ def test_modulate_and_demodulate_match_jax():
     img = rng.integers(0, 256, (48, 64, 3)).astype(np.uint8)
     jst = run_step(NTSC, jpipe.crt_init(NTSC, 128, 96), img, field=0,
                    frame=0, hue=0, noise=12, as_color=1)
-    st = convert.state_from_numpy(jax_leaves(jst))
+    st = convert.state_from_numpy(jax_leaves(jst), device="cpu")
     kw = dict(field=1, frame=0, hue=17)
     jmod = run_modulate(NTSC, jst, img, **kw)
     leaves_equal(pipeline.modulate(NTSC, st, torch.as_tensor(img), **kw),
                  jax_leaves(jmod), "modulate")
     jdem = run_demodulate(NTSC, jmod, noise=30)
     leaves_equal(pipeline.demodulate(
-        NTSC, convert.state_from_numpy(jax_leaves(jmod)), noise=30),
+        NTSC, convert.state_from_numpy(jax_leaves(jmod), device="cpu"),
+        noise=30),
         jax_leaves(jdem), "demodulate")
 
 
@@ -122,7 +123,7 @@ def test_step_with_blend_scanlines_tall_output():
     jstep = jax.jit(lambda s, im, f: jpipe.step(
         NTSC, s, im, field=f, frame=f, noise=5, mon=jmon))
     jst = jpipe.crt_init(NTSC, 96, 480)
-    st = pipeline.crt_init(NTSC, 96, 480)
+    st = pipeline.crt_init(NTSC, 96, 480, device="cpu")
     for f in (0, 1):
         jst = jstep(jst, jnp.asarray(img), jnp.int32(f))
         st = pipeline.step(NTSC, st, torch.as_tensor(img), field=f, frame=f,
@@ -167,7 +168,7 @@ def test_state_and_monitor_round_trips():
     leaves["analog"] = rng.integers(-128, 128, leaves["analog"].shape
                                     ).astype(np.int8)
     leaves["rn"] = np.array([-5, 2**31 - 1, 194], np.int32)
-    st = convert.state_from_numpy(leaves)
+    st = convert.state_from_numpy(leaves, device="cpu")
     assert [str(v.dtype) for v in st] == [
         "torch.int8", "torch.uint8"] + ["torch.int32"] * 5
     back = convert.state_to_numpy(st)
@@ -179,23 +180,29 @@ def test_state_and_monitor_round_trips():
     knobs = dict(hue=3, brightness=-4, contrast=np.arange(3, dtype=np.int32),
                  saturation=10, black_point=0, white_point=90, blend=1,
                  scanlines=0)
-    mon = convert.mon_from_numpy(knobs)
+    mon = convert.mon_from_numpy(knobs, device="cpu")
     assert torch.is_tensor(mon.contrast) and mon.hue == 3
     for k, v in convert.mon_to_numpy(mon).items():
         assert np.array_equal(v, knobs[k]), k
 
 
 def test_port_imports_no_jax():
+    """Neither JAX nor any module of the JAX package (`ntsc_crt_tpu` and
+    `ntsc_crt_tpu.*`) is loaded by importing the port."""
     code = ("import sys, ntsc_crt_tpu_torch; "
             "from ntsc_crt_tpu_torch.utils import convert; "
+            "from ntsc_crt_tpu_torch.ops.kernels import ccf, vhs; "
             "assert 'jax' not in sys.modules, sorted(sys.modules); "
+            "jp = [m for m in sys.modules if m == 'ntsc_crt_tpu' "
+            "or m.startswith('ntsc_crt_tpu.')]; "
+            "assert not jp, jp; "
             "assert 'ntsc_crt_tpu_torch.ops.kernels.build' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
 
 
 def test_unported_presets_raise():
-    st = pipeline.crt_init(PV1K, 64, 48)
+    st = pipeline.crt_init(PV1K, 64, 48, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipeline.modulate(PV1K, st, torch.zeros((48, 64, 3),
                                                 dtype=torch.uint8))
