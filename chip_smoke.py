@@ -9,31 +9,40 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build   — nvcc compiles ntsc_crt_tpu_torch/csrc/*.cu for sm_90a, one
    process per source, all started together.
 3. kernels — each kernel against its plain torch version on the card, on the
-   inputs the main paths hand it at batch 1 and 64: K1 encode_rows, K2
-   decode_rows and K3 hsync_chase from an NTSC step, K4 ccf_ema and K5
-   vhs_region_b_entries from an NTSCVHS step (640x480 output).  Exact
-   equality; each side's time from CUDA events; each kernel's bound from
-   these inputs (see BOUNDS below).
-4. goldens — tags NTSC, NTSC_b16, NTSCVHS and NTSCVHS_b16 of
-   tests/fixtures/device_parity_goldens.npz replayed through step /
-   step_batch on the card, bit-exact (NTSCVHS_b16: see JAX_VSYNC_PICK_SLOTS).
-5. main paths — NTSC, then NTSCVHS (do_aberration 1), each 640x480, noise
-   12, field/frame alternating: batch 1 from a 640x480 image (the live use)
-   and batch 512 from 320x240 images (the throughput use).  The launch
-   counts are zeroed just before each path and read just after it: every
-   kernel of the path must have launched.  Each path's last step must equal
-   the same step run on the CPU's plain path.  Then, for each path and batch,
-   one step timed stage by stage (host clock around synchronized stages) and
-   one step under torch.profiler (device launches and busy time).
+   inputs the main paths hand it at batch 1 and 64 (640x480 output): K1
+   encode_rows, K2 decode_rows (3-band), K3 hsync_chase and K6
+   place_rows_uniform from an NTSC step; K2 in conv mode from an NTSC
+   eq_mode="conv7" step; K2 in bloom mode and bloom_line_width from an NTSC
+   do_bloom step; K4 ccf_ema and K5 vhs_region_b_entries from an NTSCVHS
+   step.  Exact equality; each side's time from CUDA events; each kernel's
+   bound from these inputs (see BOUNDS below).
+4. goldens — tags NTSC, NTSC_b16, NTSCVHS, NTSCVHS_b16, NTSC_bloom and
+   NTSC_conv7 of tests/fixtures/device_parity_goldens.npz replayed through
+   step / step_batch on the card, bit-exact (NTSCVHS_b16: see
+   JAX_VSYNC_PICK_SLOTS).
+5. main paths — NTSC, NTSCVHS (do_aberration 1), NTSC with do_bloom and
+   NTSC with eq_mode="conv7", each 640x480, noise 12, field/frame
+   alternating: batch 1 from a 640x480 image (the live use) and batch 512
+   from 320x240 images (the throughput use).  The launch counts are zeroed
+   just before each path and read just after it: every kernel of the path
+   must have launched, and none that the path must not run.  Each path's
+   last step must equal the same step run on the CPU's plain path.  Then,
+   for each path and batch, one step timed stage by stage (host clock
+   around synchronized stages) and one step under torch.profiler (device
+   launches and busy time).
+6. variants — one batch-2 step each of fixed sync (do_vsync and do_hsync
+   False: K3 must not launch) and of the NTSC_RAINBOW preset, held to the
+   CPU's plain path.
 
 BOUNDS: a kernel's bound is the larger of the bytes it must move (each input
-read once, each output written once) over 3.35 TB/s and the int32
-instructions it executes on these inputs (counted from its source; where
-the work depends on the data, what this data needs) over the card's INT32
-instruction rate, 132 SMs x 64 lanes x 1.98 GHz (H100 SXM).  For the serial kernels (K3,
-K4, K5) the dependent chain of the longest entry is also priced at an
-assumed 4 cycles per dependent integer instruction and 260 cycles per
-dependent load that hits L2, at 1.98 GHz (`chain`).
+read once, each output written once; of K6's previous frame only the rows
+this data needs) over 3.35 TB/s and the int32 instructions it executes on
+these inputs (counted from its source; where the work depends on the data,
+what this data needs) over the card's INT32 instruction rate, 132 SMs x 64
+lanes x 1.98 GHz (H100 SXM).  For the serial kernels (K3,
+K4, K5, bloom_line_width) the dependent chain of the longest entry is also
+priced at an assumed 4 cycles per dependent integer instruction and 260
+cycles per dependent load that hits L2, at 1.98 GHz (`chain`).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Every number is measured in this run.
@@ -57,13 +66,29 @@ ORIGIN = {  # kernel -> (CUDA source, the Pallas kernel's pallas_call)
                     "ntsc_crt_tpu/ops/pallas/encode_fused.py:179"),
     "decode_rows": ("ntsc_crt_tpu_torch/csrc/decode.cu",
                     "ntsc_crt_tpu/ops/pallas/decode_fused.py:416"),
+    "decode_rows_conv": ("ntsc_crt_tpu_torch/csrc/decode.cu",
+                         "ntsc_crt_tpu/ops/pallas/decode_fused.py:416"),
+    "decode_rows_bloom": ("ntsc_crt_tpu_torch/csrc/decode.cu",
+                          "ntsc_crt_tpu/ops/pallas/decode_fused.py:416"),
+    # no Pallas kernel: the JAX decoder runs this chain as a lax.scan
+    "bloom_line_width": ("ntsc_crt_tpu_torch/csrc/decode.cu",
+                         "ntsc_crt_tpu/models/demodulate.py:886"),
     "hsync_chase": ("ntsc_crt_tpu_torch/csrc/hsync.cu",
                     "ntsc_crt_tpu/ops/pallas/hsync_scan.py:318"),
     "ccf_ema": ("ntsc_crt_tpu_torch/csrc/ccf.cu",
                 "ntsc_crt_tpu/ops/pallas/ccf_scan.py:108"),
     "vhs_region_b_entries": ("ntsc_crt_tpu_torch/csrc/vhs.cu",
                              "ntsc_crt_tpu/ops/pallas/vhs_scan.py:98"),
+    "place_rows_uniform": ("ntsc_crt_tpu_torch/csrc/place.cu",
+                           "ntsc_crt_tpu/ops/pallas/place_rows.py:255"),
 }
+BLOOM = {"do_bloom": True}
+CONV7 = {"eq_mode": "conv7"}
+VHS_KW = {"do_aberration": 1}
+FIXED_SYNC = {"do_vsync": False, "do_hsync": False}
+KERNEL_BATCHES = (1, 64)   # the kernel phase's batch sizes; the JSON line
+#                            reports the last
+MAIN_BATCH = 512           # the main paths' throughput batch
 # Slots of the NTSCVHS_b16 golden that hold the JAX package's cross-slot
 # vsync pick (its demodulate.py:295 broadcasts the pick to (B, B) and takes
 # every slot's line from slot 0's candidates).  The port decodes each slot
@@ -128,12 +153,65 @@ def work_encode(a, k, out):
     return nbytes(*a, out), out.numel() * per, None
 
 
+def eq_ops(coefs) -> int:
+    """int32 instructions of one sample's three EQ steps: 50 each for the
+    3-band chain, a multiply and an add a tap plus the shift for the FIR."""
+    return 3 * (2 * coefs[1] if coefs[0] == "conv" else 50)
+
+
 def work_decode(a, k, out):
-    """Per sample: Y/I/Q 5, three EQs of 50 each, output shifts 3; per pixel:
-    lerp 17, YIQ->RGB, contrast and clamp 27 (csrc/decode.cu)."""
+    """Per sample: Y/I/Q 5, the three EQs (eq_ops), output shifts 3; per
+    pixel: lerp 17, YIQ->RGB, contrast and clamp 27 (csrc/decode.cu).  In
+    bloom mode a row marches only to the last pixel's right source (this
+    data's dx), picks its wave phase (6 a sample) and tracks its sources
+    (10 a pixel)."""
+    from ntsc_crt_tpu_torch.ops.kernels import decode
     B, L = a[1].shape
-    return (nbytes(*a, out), B * L * (k["av_len"] * 158 + k["outw"] * 44),
-            None)
+    outw, av = k["outw"], k["av_len"]
+    per_sample = 8 + eq_ops(k["coefs"])
+    if k.get("bloom_dx") is None:
+        return (nbytes(*a, out), B * L * (av * per_sample + outw * 44), None)
+    n_eq = decode.eq_len(av, a[2].shape[2])
+    last = ((k["bloom_dx"].long() * (outw - 1)) >> 12).clamp(min=0)
+    samples = int(((last + 1).clamp(max=n_eq - 1) + 1).sum())
+    return (nbytes(*a, out, k["bloom_dx"], k["bloom_lidx"]),
+            samples * (per_sample + 6) + B * L * outw * 54, None)
+
+
+def work_line_width(a, k, out):
+    """Per line: the drive term (subtract, shift, a division by max_e of
+    about 20), the multiply, the truncating /128 (3) and the add — five of
+    them on the chain, and the store."""
+    sums, _ = a
+    B, L = sums.shape
+    return nbytes(*a, out), B * L * 30, L * 5 * DEP_CYCLES
+
+
+def work_place(a, k, out):
+    """Per 16-byte chunk: the row's source picks and the keep test (about
+    30), the blend 16 over four words.  Bytes: the lines, the field bits,
+    the output, and only the previous rows this data needs — those kept
+    (scanline gaps, the odd field's clips) and, with blend, each group's
+    beg row."""
+    rgb, old, field_px = a
+    ratio, fp, sl = k["ratio"], k["fp"], k["scanlines"]
+    B, L = rgb.shape[:2]
+    fb = (field_px > 0).cpu()[:, None]                    # (B, 1)
+    r = torch.arange(ratio * L)
+    kk, j = r // ratio, r % ratio
+    keep = torch.where(fb, (j - fp) % ratio, j) >= ratio - sl
+    if fp:
+        keep |= (j < fp) & (kk == 0) & fb
+        keep |= (j > fp) & (j >= ratio - sl) & (kk == L - 1) & fb
+    need = keep.clone()
+    if k["blend"]:
+        src = torch.where(fb & (j < fp), (kk - 1).clamp(min=0), kk)
+        beg = ratio * src + torch.where(fb, fp, 0)
+        need.scatter_(1, torch.where(keep, r, beg), True)
+    old_bytes = int(need.sum()) * old[0, 0].numel()
+    n = out.numel() // 16
+    return (nbytes(rgb, field_px, out) + old_bytes,
+            n * (30 + (16 if k["blend"] else 0)), None)
 
 
 def work_hsync(a, k, out):
@@ -182,15 +260,49 @@ def bound(work):
             None if chain is None else chain / CLOCK_HZ * 1e3)
 
 
+class Kernel:
+    """One kernel: its wrapper (module attribute `wrapper`), launch counter
+    (module attribute `counter`), plain version and work counter."""
+
+    def __init__(self, mod, wrapper, counter, plain, work):
+        self.mod, self.wrapper, self.counter = mod, wrapper, counter
+        self.plain, self.work = plain, work
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.mod, self.counter)
+
+    def reset(self) -> None:
+        setattr(self.mod, self.counter, 0)
+
+
 def kernel_modules():
-    """name -> (wrapper's module, plain version, work counter)."""
-    from ntsc_crt_tpu_torch.ops.kernels import ccf, decode, encode, hsync, vhs
-    return {"encode_rows": (encode, encode.encode_rows_plain, work_encode),
-            "decode_rows": (decode, decode.decode_rows_plain, work_decode),
-            "hsync_chase": (hsync, hsync.hsync_chase_plain, work_hsync),
-            "ccf_ema": (ccf, ccf.ccf_ema_plain, work_ccf),
-            "vhs_region_b_entries": (vhs, vhs.vhs_region_b_entries_plain,
-                                     work_vhs)}
+    """name -> Kernel, for every kernel of ORIGIN."""
+    from ntsc_crt_tpu_torch.ops.kernels import (ccf, decode, encode, hsync,
+                                                place, vhs)
+    dec = lambda counter: Kernel(decode, "decode_rows", counter,  # noqa: E731
+                                 decode.decode_rows_plain, work_decode)
+    return {
+        "encode_rows": Kernel(encode, "encode_rows", "LAUNCHES",
+                              encode.encode_rows_plain, work_encode),
+        "decode_rows": dec("LAUNCHES"),
+        "decode_rows_conv": dec("CONV_LAUNCHES"),
+        "decode_rows_bloom": dec("BLOOM_LAUNCHES"),
+        "bloom_line_width": Kernel(decode, "bloom_line_width",
+                                   "LINE_WIDTH_LAUNCHES",
+                                   decode.bloom_line_width_plain,
+                                   work_line_width),
+        "hsync_chase": Kernel(hsync, "hsync_chase", "LAUNCHES",
+                              hsync.hsync_chase_plain, work_hsync),
+        "ccf_ema": Kernel(ccf, "ccf_ema", "LAUNCHES", ccf.ccf_ema_plain,
+                          work_ccf),
+        "vhs_region_b_entries": Kernel(vhs, "vhs_region_b_entries",
+                                       "LAUNCHES",
+                                       vhs.vhs_region_b_entries_plain,
+                                       work_vhs),
+        "place_rows_uniform": Kernel(place, "place_rows_uniform", "LAUNCHES",
+                                     place.place_rows_uniform_plain,
+                                     work_place)}
 
 
 def path_args(B, i, dev):
@@ -201,8 +313,8 @@ def path_args(B, i, dev):
 
 
 def capture_kernel_inputs(pipeline, cfg, B, names, dev, kw):
-    """The arguments each named wrapper receives on the second step of a
-    batch-B run (a locked, non-trivial state)."""
+    """The arguments each named kernel's wrapper receives on the second
+    step of a batch-B run (a locked, non-trivial state)."""
     mods = kernel_modules()
     rng = np.random.default_rng(B)
     imgs = torch.as_tensor(rng.integers(0, 256, (B, 240, 320, 3),
@@ -212,33 +324,37 @@ def capture_kernel_inputs(pipeline, cfg, B, names, dev, kw):
                              **kw)
     seen = {}
 
-    def record(name, fn):
+    def record(wrapper, fn):
         def rec(*a, **k):
-            seen[name] = (a, k)
+            seen[wrapper] = (a, k)
             return fn(*a, **k)
         return rec
 
-    with patched([(mods[n][0], n) for n in names], record):
+    targets = {(mods[n].mod, mods[n].wrapper) for n in names}
+    with patched(sorted(targets, key=lambda t: t[1]), record):
         pipeline.step_batch(cfg, st, imgs, *path_args(B, 1, dev), noise=12,
                             **kw)
-    return seen
+    return {n: seen[mods[n].wrapper] for n in names}
 
 
 def phase_kernels(pipeline, systems, dev):
     """Each kernel vs its plain version at batch 1 and 64.  Returns
     {name: {B: row}}."""
     mods = kernel_modules()
-    groups = ((systems.NTSC, ("encode_rows", "decode_rows", "hsync_chase"),
-               {}),
-              (systems.NTSCVHS, ("ccf_ema", "vhs_region_b_entries"),
-               {"do_aberration": 1}))
+    groups = ((systems.NTSC, ("encode_rows", "decode_rows", "hsync_chase",
+                              "place_rows_uniform"), {}),
+              (systems.NTSC, ("decode_rows_conv",), CONV7),
+              (systems.NTSC, ("decode_rows_bloom", "bloom_line_width"),
+               BLOOM),
+              (systems.NTSCVHS, ("ccf_ema", "vhs_region_b_entries"), VHS_KW))
     rows = {name: {} for name in mods}
     for cfg, names, kw in groups:
-        for B in (1, 64):
+        for B in KERNEL_BATCHES:
             seen = capture_kernel_inputs(pipeline, cfg, B, names, dev, kw)
             for name in names:
-                mod, plain, work = mods[name]
-                kern = getattr(mod, name)
+                mod, plain, work = mods[name].mod, mods[name].plain, \
+                    mods[name].work
+                kern = getattr(mod, mods[name].wrapper)
                 a, k = seen[name]
                 got, want = kern(*a, **k), plain(*a, **k)
                 torch.cuda.synchronize()
@@ -268,34 +384,38 @@ def phase_kernels(pipeline, systems, dev):
 # --- goldens ------------------------------------------------------------------
 
 
-def golden_run(pipeline, cfg, B, dev):
+def golden_run(pipeline, cfg, B, dev, kw):
     """The recipe of bench.py:198-235: two 320x240 frames at 128x96 (B = 1,
     unbatched state) or sixteen 80x60 slots through step_batch, noise 7;
-    the second step toggles field/frame."""
+    the second step toggles field/frame; kw: the tag's build variant."""
     if B == 1:
         img = np.random.RandomState(0).randint(0, 256, (1, 240, 320, 3),
                                                np.uint8)[0]
         st = pipeline.crt_init(cfg, 128, 96, device=dev)
         for f in (0, 1):
             st = pipeline.step(cfg, st, torch.as_tensor(img, device=dev),
-                               field=f, frame=f, noise=7)
+                               field=f, frame=f, noise=7, **kw)
         return st
     imgs = torch.as_tensor(np.random.RandomState(0).randint(
         0, 256, (B, 60, 80, 3), np.uint8), device=dev)
     st = pipeline.init_batch(cfg, B, 128, 96, device=dev)
     zeros = torch.zeros(B, dtype=torch.int32, device=dev)
     alt = torch.arange(B, dtype=torch.int32, device=dev) % 2
-    st = pipeline.step_batch(cfg, st, imgs, zeros, zeros, zeros, noise=7)
-    return pipeline.step_batch(cfg, st, imgs, alt, alt, zeros, noise=7)
+    st = pipeline.step_batch(cfg, st, imgs, zeros, zeros, zeros, noise=7,
+                             **kw)
+    return pipeline.step_batch(cfg, st, imgs, alt, alt, zeros, noise=7, **kw)
 
 
 def phase_goldens(pipeline, systems, dev):
     ref = np.load(GOLDENS)
-    runs = (("NTSC", systems.NTSC, 1), ("NTSC_b16", systems.NTSC, 16),
-            ("NTSCVHS", systems.NTSCVHS, 1),
-            ("NTSCVHS_b16", systems.NTSCVHS, 16))
-    for tag, cfg, B in runs:
-        st = golden_run(pipeline, cfg, B, dev)
+    runs = (("NTSC", systems.NTSC, 1, {}),
+            ("NTSC_b16", systems.NTSC, 16, {}),
+            ("NTSCVHS", systems.NTSCVHS, 1, {}),
+            ("NTSCVHS_b16", systems.NTSCVHS, 16, {}),
+            ("NTSC_bloom", systems.NTSC, 1, BLOOM),
+            ("NTSC_conv7", systems.NTSC, 1, CONV7))
+    for tag, cfg, B, kw in runs:
+        st = golden_run(pipeline, cfg, B, dev, kw)
         skip = JAX_VSYNC_PICK_SLOTS.get(tag, [])
         keep = [s for s in range(B) if s not in skip]
         for k, v in st._asdict().items():
@@ -307,7 +427,7 @@ def phase_goldens(pipeline, systems, dev):
                 raise SystemExit(f"golden {tag}/{k} differs on the card")
         msg = f"golden {tag}: all 7 state leaves bit-exact"
         if skip:
-            cpu = golden_run(pipeline, cfg, B, torch.device("cpu"))
+            cpu = golden_run(pipeline, cfg, B, torch.device("cpu"), kw)
             for k, v in st._asdict().items():
                 if not torch.equal(v.cpu(), getattr(cpu, k)):
                     raise SystemExit(f"golden {tag}/{k}: card differs from "
@@ -357,10 +477,12 @@ def stage_times(pipeline, fn):
     synchronize on both sides.  Nested stages (a kernel inside the line
     scan) count inside their parent too."""
     from ntsc_crt_tpu_torch.models import demodulate as dem
-    mods = kernel_modules()
-    names = [(pipeline, "modulate")] + [(mods[n][0], n) for n in mods] + [
+    wrappers = {(k.mod, k.wrapper) for k in kernel_modules().values()}
+    names = [(pipeline, "modulate")] + sorted(wrappers,
+                                              key=lambda t: t[1]) + [
         (dem, n) for n in ("_inject_noise", "_inject_noise_vhs",
-                           "_find_vsync", "_line_scan", "_place_rows")]
+                           "_find_vsync", "_line_scan", "_bloom_lines",
+                           "_place_rows")]
     times = {}
 
     def timed(name, fn_):
@@ -410,57 +532,94 @@ def profile_step(fn):
     return len(evs), len(kernels), busy / 1e3, wall, top
 
 
-def phase_path(pipeline, cfg, kw, needed, card, dev):
-    """One main path at batch 1 and 512; returns the launch counts."""
+def counted(label, needed, run):
+    """run() with every launch count zeroed just before it and read just
+    after; fails unless each kernel of `needed` launched and no other did.
+    Returns (the counts, run's result)."""
     mods = kernel_modules()
+    for k in mods.values():
+        k.reset()
+    result = run()
+    launches = {name: k.launches for name, k in mods.items()}
+    print(f"{label}: launches {launches}", flush=True)
+    missing = [k for k in needed if launches[k] == 0]
+    extra = [k for k, n in launches.items() if n and k not in needed]
+    if missing or extra:
+        raise SystemExit(f"{label}: never launched {missing}, launched "
+                         f"{extra} that it must not run")
+    return launches, result
+
+
+def path_label(cfg, kw):
+    return " ".join([cfg.name, *(f"{k}={v}" for k, v in kw.items())])
+
+
+def phase_path(pipeline, cfg, kw, needed, card, dev, steps1=30, stepsB=5):
+    """One main path at batch 1 and 512; returns the launch counts."""
     rng = np.random.default_rng(1234)
     img1 = torch.as_tensor(rng.integers(0, 256, (1, OUTH, OUTW, 3),
                                         dtype=np.uint8), device=dev)
-    B = 512
+    B = MAIN_BATCH
     imgsB = torch.as_tensor(rng.integers(0, 256, (B, 240, 320, 3),
                                          dtype=np.uint8), device=dev)
-    for mod, _, _ in mods.values():
-        mod.LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    ms1, prev1, args1, st1, n1 = run_main_path(pipeline, cfg, 1, img1, 30,
-                                               dev, kw)
-    mem1 = torch.cuda.max_memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    msB, prevB, argsB, stB, nB = run_main_path(pipeline, cfg, B, imgsB, 5,
-                                               dev, kw)
-    memB = torch.cuda.max_memory_allocated(dev)
-    launches = {name: mods[name][0].LAUNCHES for name in mods}
-    print(f"{cfg.name} main path, {n1 + nB} steps: launches {launches}",
-          flush=True)
-    missing = [k for k in needed if launches[k] == 0]
-    if missing:
-        raise SystemExit(f"{cfg.name} main path never launched {missing}")
+    label = path_label(cfg, kw)
+    mem = []
+
+    def both():
+        torch.cuda.reset_peak_memory_stats(dev)
+        r1 = run_main_path(pipeline, cfg, 1, img1, steps1, dev, kw)
+        mem.append(torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        rB = run_main_path(pipeline, cfg, B, imgsB, stepsB, dev, kw)
+        mem.append(torch.cuda.max_memory_allocated(dev))
+        return r1, rB
+
+    launches, (r1, rB) = counted(
+        f"{label} main path, {steps1 + stepsB + 4} steps", needed, both)
+    (ms1, prev1, args1, st1, _), (msB, prevB, argsB, stB, _) = r1, rB
     for k, st in (("batch 1", st1), (f"batch {B}", stB)):
         if tuple(st.out.shape[1:]) != (OUTH, OUTW, 3) or \
                 st.out.dtype != torch.uint8:
-            raise SystemExit(f"{cfg.name} {k}: bad output "
+            raise SystemExit(f"{label} {k}: bad output "
                              f"{tuple(st.out.shape)}")
     check_against_cpu(pipeline, cfg, prev1, img1, args1, st1, 1, kw)
     check_against_cpu(pipeline, cfg, prevB, imgsB, argsB, stB, 2, kw)
-    print(f"{cfg.name} main path: last step equals the CPU plain path "
-          "(batch 1; slots 0-1 of batch 512)")
-    for b, ms, mem in ((1, ms1, mem1), (B, msB, memB)):
-        print(f"{cfg.name} 640x480 batch {b}: {ms / b:.4f} ms/frame, "
+    print(f"{label} main path: last step equals the CPU plain path "
+          f"(batch 1; slots 0-1 of batch {B})")
+    for b, ms, m in ((1, ms1, mem[0]), (B, msB, mem[1])):
+        print(f"{label} 640x480 batch {b}: {ms / b:.4f} ms/frame, "
               f"{b * 1e3 / ms:.2f} frames/s, {ms:.3f} ms/step, peak "
-              f"{mem / 2**20:.1f} MiB allocated  [{card}]", flush=True)
+              f"{m / 2**20:.1f} MiB allocated  [{card}]", flush=True)
 
     for b, st, imgs in ((1, st1, img1), (B, stB, imgsB)):
         def one():
             pipeline.step_batch(cfg, st, imgs, *path_args(b, 0, dev),
                                 noise=12, **kw)
         t = stage_times(pipeline, one)
-        print(f"{cfg.name} stages batch {b} (ms, host clock, synchronized): "
+        print(f"{label} stages batch {b} (ms, host clock, synchronized): "
               + ", ".join(f"{k} {v:.3f}" for k, v in t.items()), flush=True)
         ops, kern, busy, wall, top = profile_step(one)
-        print(f"{cfg.name} profiled step batch {b}: {ops} device operations "
+        print(f"{label} profiled step batch {b}: {ops} device operations "
               f"({kern} kernels), device busy {busy:.3f} ms of {wall:.3f} "
               f"ms wall  [{card}]; most host time (ms): {top}", flush=True)
     return launches
+
+
+def phase_variant(pipeline, cfg, kw, needed, dev):
+    """One batch-2 step at 640x480 from a stepped state, counted, and held
+    to the CPU's plain path."""
+    B = 2
+    imgs = torch.as_tensor(np.random.default_rng(7).integers(
+        0, 256, (B, 240, 320, 3), dtype=np.uint8), device=dev)
+    st = pipeline.init_batch(cfg, B, OUTW, OUTH, device=dev)
+    st = pipeline.step_batch(cfg, st, imgs, *path_args(B, 0, dev), noise=12,
+                             **kw)
+    args = path_args(B, 1, dev)
+    label = f"{path_label(cfg, kw)} step"
+    _, got = counted(label, needed, lambda: pipeline.step_batch(
+        cfg, st, imgs, *args, noise=12, **kw))
+    check_against_cpu(pipeline, cfg, st, imgs, args, got, B, kw)
+    print(f"{label}: equals the CPU plain path (batch {B})", flush=True)
 
 
 def main() -> int:
@@ -493,19 +652,38 @@ def main() -> int:
     # 4. goldens
     phase_goldens(pipeline, systems, dev)
 
-    # 5. the main paths, each counted on its own
-    ntsc_needed = ("encode_rows", "decode_rows", "hsync_chase", "ccf_ema")
-    phase_path(pipeline, systems.NTSC, {}, ntsc_needed, card, dev)
-    launches = phase_path(pipeline, systems.NTSCVHS, {"do_aberration": 1},
-                          tuple(ORIGIN), card, dev)
+    # 5. the main paths, each counted on its own; a kernel's launches are
+    # its counts summed over the paths
+    common = ("encode_rows", "hsync_chase", "ccf_ema")
+    paths = ((systems.NTSC, {}, common + ("decode_rows", "place_rows_uniform")),
+             (systems.NTSCVHS, VHS_KW,
+              common + ("decode_rows", "place_rows_uniform",
+                        "vhs_region_b_entries")),
+             (systems.NTSC, BLOOM,
+              common + ("decode_rows_bloom", "bloom_line_width")),
+             (systems.NTSC, CONV7,
+              common + ("decode_rows_conv", "place_rows_uniform")))
+    launches = dict.fromkeys(ORIGIN, 0)
+    for cfg, kw, needed in paths:
+        for k, n in phase_path(pipeline, cfg, kw, needed, card, dev).items():
+            launches[k] += n
+
+    # 6. the other variants: one step each
+    phase_variant(pipeline, systems.NTSC, FIXED_SYNC,
+                  ("encode_rows", "ccf_ema", "decode_rows",
+                   "place_rows_uniform"), dev)
+    phase_variant(pipeline, systems.NTSC_RAINBOW, {},
+                  common + ("decode_rows", "place_rows_uniform"), dev)
 
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=ORIGIN[k][0], replaces=ORIGIN[k][1],
              launches=launches[k],
              max_abs_err=max(r["max_abs_err"] for r in table[k].values()),
-             ms=table[k][64]["ms"], plain_ms=table[k][64]["plain_ms"],
-             bound_ms=table[k][64]["bound_ms"],
-             bound_by=table[k][64]["bound_by"], library_ms=None)
+             ms=table[k][KERNEL_BATCHES[-1]]["ms"],
+             plain_ms=table[k][KERNEL_BATCHES[-1]]["plain_ms"],
+             bound_ms=table[k][KERNEL_BATCHES[-1]]["bound_ms"],
+             bound_by=table[k][KERNEL_BATCHES[-1]]["bound_by"],
+             library_ms=None)
         for k in ORIGIN]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,108 @@
+// K6 place_rows_uniform: uniform row placement of the decoded lines into
+// the output frame, with the odd-field shift, the 50/50 blend against the
+// previous frame and the scanline gaps (crt_core.c:552-664), one thread per
+// 16-byte chunk of an output row (per byte where rows are not 16-byte
+// multiples).
+//
+// Replaces: ntsc_crt_tpu/ops/pallas/place_rows.py::place_rows_uniform and
+// place_rows_uniform_tiled (their three pallas_calls compute the same
+// function), i.e. the stacked branch of
+// ntsc_crt_tpu/models/demodulate.py::_place_rows_uniform.
+//
+// Output row r = ratio*k + j (line group k, slot j) of frame b reads line
+// k - (j < fp and the frame is an odd field), clamped at line 0; with blend
+// on it is (line >> 1) + (old[beg] >> 1) bytewise, beg being the group's
+// first row (ratio*k, or ratio*(that line) + fp on an odd field); it keeps
+// the previous contents in the scanline gap and at the odd field's top and
+// bottom clips.  Every decision is per row, so a thread only picks its two
+// source rows and moves 16 bytes.
+//
+// What bounds it on the H100: bytes.  It reads each needed line and old
+// row and writes the output once; the ratio slots of a group re-read the
+// same line, which the L2 serves.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+__device__ __forceinline__ unsigned half_sum(unsigned a, unsigned b) {
+    // (a >> 1) + (b >> 1) in each byte: at most 254, so no carry crosses
+    return ((a >> 1) & 0x7F7F7F7Fu) + ((b >> 1) & 0x7F7F7F7Fu);
+}
+
+template <int VEC>
+__global__ void place_rows_kernel(const uint8_t* __restrict__ rgb,  // (B, L, w3)
+                                  const uint8_t* __restrict__ old,  // (B, ratio*L, w3)
+                                  const int* __restrict__ field_px,  // (B,)
+                                  uint8_t* __restrict__ out,  // (B, ratio*L, w3)
+                                  int B, int L, int ratio, int w3, int fp,
+                                  int blend, int scanlines) {
+    const long long nc = w3 / VEC;
+    const long long outh = (long long)ratio * L;
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= (long long)B * outh * nc) return;
+    const long long c = (i % nc) * VEC;
+    const long long rr = i / nc;
+    const int r = (int)(rr % outh);
+    const long long b = rr / outh;
+    const int k = r / ratio;
+    const int j = r % ratio;
+    const bool fb = field_px[b] > 0;
+    const bool shifted = fp > 0 && j < fp;       // slot reads line k - 1
+    const int src = (shifted && fb) ? max(k - 1, 0) : k;
+    const int rel = fb ? ((j - fp) % ratio + ratio) % ratio : j;
+    bool keep = rel >= ratio - scanlines;         // scanline gap
+    if (shifted) keep = keep || (k == 0 && fb);   // rows above the field
+    if (fp > 0 && j > fp && j >= ratio - scanlines)
+        keep = keep || (k == L - 1 && fb);        // bottom clip (crt_core.c:432)
+
+    const uint8_t* o = old + (b * outh + r) * w3 + c;
+    uint8_t* d = out + (b * outh + r) * w3 + c;
+    const uint8_t* s = keep ? o : rgb + (b * L + src) * w3 + c;
+    const uint8_t* ob =
+        old + (b * outh + (long long)ratio * src + (fp > 0 && fb ? fp : 0)) * w3 + c;
+    const bool mix = blend && !keep;
+    if constexpr (VEC == 16) {
+        uint4 v = *reinterpret_cast<const uint4*>(s);
+        if (mix) {
+            const uint4 w = *reinterpret_cast<const uint4*>(ob);
+            v.x = half_sum(v.x, w.x);
+            v.y = half_sum(v.y, w.y);
+            v.z = half_sum(v.z, w.z);
+            v.w = half_sum(v.w, w.w);
+        }
+        *reinterpret_cast<uint4*>(d) = v;
+    } else {
+        unsigned v = *s;
+        if (mix) v = (v >> 1) + (*ob >> 1);
+        *d = (uint8_t)v;
+    }
+}
+
+}  // namespace
+
+// rgb uint8 (B, L, w3); old, out uint8 (B, ratio*L, w3); field_px int32
+// (B,); blend 0/1; 0 <= scanlines < ratio; 0 <= fp < ratio
+extern "C" int ntsc_place_rows_uniform(const void* rgb, const void* old,
+                                       const void* field_px, void* out, int B,
+                                       int L, int ratio, int w3, int fp,
+                                       int blend, int scanlines,
+                                       void* stream) {
+    const bool vec = w3 % 16 == 0 && (uintptr_t)rgb % 16 == 0 &&
+                     (uintptr_t)old % 16 == 0 && (uintptr_t)out % 16 == 0;
+    const long long n = (long long)B * ratio * L * (vec ? w3 / 16 : w3);
+    const int threads = 256;
+    const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+    auto s = static_cast<cudaStream_t>(stream);
+    if (vec) {
+        place_rows_kernel<16><<<blocks, threads, 0, s>>>(
+            (const uint8_t*)rgb, (const uint8_t*)old, (const int*)field_px,
+            (uint8_t*)out, B, L, ratio, w3, fp, blend, scanlines);
+    } else {
+        place_rows_kernel<1><<<blocks, threads, 0, s>>>(
+            (const uint8_t*)rgb, (const uint8_t*)old, (const int*)field_px,
+            (uint8_t*)out, B, L, ratio, w3, fp, blend, scanlines);
+    }
+    return (int)cudaGetLastError();
+}

@@ -1,20 +1,26 @@
 """Demodulator: sampled analog composite signals -> RGB, like a CRT would.
 
 Counterpart of ``ntsc_crt_tpu/models/demodulate.py`` (crt_demodulate,
-crt_core.c:291-666), batch-first, for 4-sample chroma systems with the
-default three-band EQ.  Each stage keeps one formulation, the plain one:
+crt_core.c:291-666), batch-first, for 4-sample chroma systems, with the
+reference's decode build variants: the 3-band or convolution EQ
+(USE_CONVOLUTION), bloom (CRT_DO_BLOOM) and fixed sync (CRT_DO_VSYNC /
+CRT_DO_HSYNC = 0).  Each stage keeps one formulation, the plain one:
 
 1. **Noise injection** — the serial LCG in closed form (ops/lcg.py), or on
    the VHS presets the crt_rand tracking noise: closed forms over regions A
    and C and the serial region-B march in kernel K5.
 2. **VSYNC recovery** — running sums over the candidate rows and the first
-   crossing below the threshold (crt_core.c:369-397).
-3. **Per-line sequential state** — the hsync chase (kernel K3), the burst
-   gather and the ccf carrier EMA (kernel K4), then the decode waves.
-4. **Line decode** — alignment, Y/I/Q, 3-band EQ and scan conversion in
-   kernel K2.
-5. **Row placement** — each output row takes the last line that covers it,
-   blended with the previous frame if asked (crt_core.c:552-664).
+   crossing below the threshold (crt_core.c:369-397); with fixed vsync only
+   the field parity, from the clean signal.
+3. **Per-line sequential state** — the hsync chase (kernel K3, or pinned
+   to 0 with fixed hsync), the burst gather and the ccf carrier EMA (kernel
+   K4), then the decode waves; with bloom the line sums and their energy
+   EMA (kernel bloom_line_width) give each line its width.
+4. **Line decode** — alignment, Y/I/Q, EQ and scan conversion in kernel K2.
+5. **Row placement** — kernel K6 where every line covers the same number
+   of rows and the knobs are host ints; otherwise each output row takes the
+   last line that covers it, blended with the previous frame if asked
+   (crt_core.c:552-664).
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from ntsc_crt_tpu_torch.models.systems import SystemConfig
 from ntsc_crt_tpu_torch.ops import fastpath, filters, lcg
 from ntsc_crt_tpu_torch.ops.fixedpoint import (cdiv, crem, np_sincos14,
                                                posmod, sincos14)
-from ntsc_crt_tpu_torch.ops.kernels import ccf, decode, hsync, vhs
+from ntsc_crt_tpu_torch.ops.kernels import ccf, decode, hsync, place, vhs
 from ntsc_crt_tpu_torch.models.modulate import _b
 
 Knob = Union[int, torch.Tensor]
@@ -216,11 +222,13 @@ def _find_vsync(cfg: SystemConfig, inp2d: torch.Tensor, vsync: torch.Tensor):
 
 
 def _line_scan(cfg: SystemConfig, inp2d, hsync0, ccf0, vsync, hue_sn, hue_cs,
-               saturation, outh: int, v_fac: int, field_px):
+               saturation, outh: int, v_fac: int, field_px,
+               do_hsync: bool = True):
     """Per-line sequential pass: hsync chase, ccf EMA and the decode waves
     (crt_core.c:409-536).  inp2d int8 (B, V, H); carries (B, ...).  Returns
     (hsync', ccf', (xpos, beg, end, active, wave) per line, rolled4) where
-    rolled4[b, i] is field row (top + i + vsync) mod V, i < L + 4."""
+    rolled4[b, i] is field row (top + i + vsync) mod V, i < L + 4.
+    do_hsync=False is the CRT_DO_HSYNC=0 build: no chase, hsync pinned."""
     CC = cfg.cc_samples
     B = inp2d.shape[0]
     L = cfg.lines
@@ -247,9 +255,15 @@ def _line_scan(cfg: SystemConfig, inp2d, hsync0, ccf0, vsync, hue_sn, hue_cs,
     rolled4 = fastpath.select_rows_batched(inp2d, row_idx4)  # (B, L+4, H)
     rows2 = torch.cat([rolled4[:, :L], rolled4[:, 1:L + 1, :PAD]], dim=2)
 
-    hsync_l = hsync.hsync_chase(
-        rows2, active_l.contiguous(), hsync0.contiguous(), W=W,
-        c0=cfg.sync_beg - W, thresh=cfg.hsync_thresh * cfg.sync_level, H=H)
+    if do_hsync:
+        hsync_l = hsync.hsync_chase(
+            rows2, active_l.contiguous(), hsync0.contiguous(), W=W,
+            c0=cfg.sync_beg - W, thresh=cfg.hsync_thresh * cfg.sync_level,
+            H=H)
+    else:
+        # crt_core.c:446-448: every processed line pins v->hsync = 0
+        ever = torch.cumsum(active_l.to(torch.int32), dim=1) > 0
+        hsync_l = torch.where(ever, 0, hsync0[:, None])
     hsync_f = hsync_l[:, L - 1]
 
     xpos_l = posmod(cfg.av_beg + hsync_l - 3, H)          # xnudge=-3
@@ -301,17 +315,31 @@ def demodulate_core(
     *,
     randstate=None,           # (B,) crt_rand state, read on VHS presets
     v_fac: int = 0,
+    eq_mode: str = "threeband",
+    do_bloom: bool = False,
+    do_vsync: bool = True,
+    do_hsync: bool = True,
 ) -> tuple[torch.Tensor, dict]:
     """One decode pass.  Returns (rgb uint8 (B, outh, outw, 3), new state
     dict with keys hsync/vsync/ccf/rn/randstate; randstate comes back as
-    given where the preset draws no VHS noise)."""
+    given where the preset draws no VHS noise).  eq_mode "threeband" or
+    "conv4".."conv7" (USE_CONVOLUTION); do_bloom (CRT_DO_BLOOM);
+    do_vsync/do_hsync=False (CRT_DO_VSYNC/CRT_DO_HSYNC=0)."""
     if cfg.cc_samples != 4:
         raise NotImplementedError(
             f"{cfg.name}: the port decodes 4-sample chroma systems only "
             "(ROADMAP Queue 1, M7)")
+    if eq_mode == "threeband":
+        coefs = _eq_coefs(cfg)
+    elif (eq_mode.startswith("conv") and eq_mode[4:].isdigit()
+          and int(eq_mode[4:]) in filters._CONV_EQ_KERNELS):
+        coefs = ("conv", int(eq_mode[4:]))
+    else:
+        raise ValueError(f"eq_mode must be 'threeband' or 'conv4'..'conv7', "
+                         f"got {eq_mode!r}")
     B, outh, outw = out_prev.shape[0], out_prev.shape[1], out_prev.shape[2]
     dev = analog.device
-    L = cfg.lines
+    L, AV, CC = cfg.lines, cfg.av_len, cfg.cc_samples
     noise = _b(noise, B, dev)
 
     bright = _b(mon.brightness, B, dev) - (
@@ -327,39 +355,101 @@ def demodulate_core(
         inp2d = inp_flat.reshape(analog.shape)
     else:
         inp2d, rn_new = _inject_noise(cfg, analog, _b(rn, B, dev), noise)
-    vsync_new, field = _find_vsync(cfg, inp2d, _b(vsync, B, dev))
+    if do_vsync:
+        vsync_new, field = _find_vsync(cfg, inp2d, _b(vsync, B, dev))
+    else:
+        # CRT_DO_VSYNC=0 (crt_core.c:323-341): the field parity comes from
+        # the clean signal and the vsync position is pinned to -3
+        _, field = _find_vsync(cfg, analog, _b(vsync, B, dev))
+        vsync_new = torch.full((B,), -3, dtype=torch.int32, device=dev)
     ratio = ((outh << 16) // cfg.lines + 32768) >> 16
     field_px = field * (ratio // 2)
 
     hsync_new, ccf_new, outs, rolled4 = _line_scan(
         cfg, inp2d, _b(hsync, B, dev), ccf.to(torch.int32), vsync_new,
-        hue_sn, hue_cs, saturation, outh, v_fac, field_px)
+        hue_sn, hue_cs, saturation, outh, v_fac, field_px, do_hsync=do_hsync)
     xpos_l, beg_l, end_l, active_l, wave_l = outs
 
     # Q wave is the I table rotated by 3 (crt_core.c:541-542); line l reads
     # field rows l+3 and l+4 (ynudge=+3), i.e. rolled4 from row 3
+    wvI_l, wvQ_l = wave_l, torch.roll(wave_l, -3, dims=-1)
+    shifts, valid, bloom = xpos_l, None, {}
+    if do_bloom:
+        dx_l, lidx_l, valid = _bloom_lines(cfg, rolled4[:, 3:], xpos_l,
+                                           noise, outw)
+        shifts = xpos_l + lidx_l          # the EQ starts at scanL >> 12
+        # the carrier phase at that start: tables rotated by lidx mod CC
+        rot = (torch.arange(CC, device=dev) + (lidx_l % CC)[..., None]) % CC
+        wvI_l = torch.gather(wvI_l, 2, rot)
+        wvQ_l = torch.gather(wvQ_l, 2, rot)
+        bloom = dict(bloom_dx=dx_l.contiguous(),
+                     bloom_lidx=lidx_l.contiguous())
     rgb = decode.decode_rows(
-        rolled4, xpos_l.contiguous(), wave_l.contiguous(),
-        torch.roll(wave_l, -3, dims=-1).contiguous(),
+        rolled4, shifts.contiguous(), wvI_l.contiguous(), wvQ_l.contiguous(),
         bright[:, None].expand(B, L).contiguous(),
         _b(mon.contrast, B, dev)[:, None].expand(B, L).contiguous(),
-        row0=3, coefs=_eq_coefs(cfg), av_len=cfg.av_len, outw=outw)
+        row0=3, coefs=coefs, av_len=AV, outw=outw, **bloom)
     out_new = _place_rows(rgb, out_prev, beg_l, end_l, active_l, mon.blend,
-                          _b(mon.scanlines, B, dev), outh)
+                          mon.scanlines, outh, valid=valid,
+                          field_px=field_px, v_fac=v_fac)
     return out_new, dict(hsync=hsync_new, vsync=vsync_new, ccf=ccf_new,
                          rn=rn_new, randstate=randstate)
 
 
+def _bloom_lines(cfg: SystemConfig, rolled, xpos_l, noise, outw: int):
+    """Beam-energy bloom (crt_core.c:512-532): each line's sample sum drives
+    an energy EMA (kernel bloom_line_width) that sets the drawn line's
+    width.  rolled int8 (B, L+1, H): line l's field row and the next; the
+    [xpos, xpos + AV) window spills into the next row.  Returns (dx, lidx)
+    int32 (B, L) — each line's pixel step and EQ start scanL >> 12 — and
+    valid bool (B, L, outw): the pixels inside the drawn line
+    (crt_core.c:555 loop bound)."""
+    B, L1, H = rolled.shape
+    L, AV = L1 - 1, cfg.av_len
+    dev = rolled.device
+    iota = torch.arange(H, dtype=torch.int32, device=dev)
+    xa = xpos_l[..., None]                                # (B, L, 1)
+    in_w = (iota >= xa) & (iota < xa + AV)
+    in_spill = iota < xa + AV - H
+    sums = (torch.where(in_w, rolled[:, :L], 0).sum(2, dtype=torch.int32)
+            + torch.where(in_spill, rolled[:, 1:], 0).sum(2, dtype=torch.int32))
+    max_e = (128 + cdiv(noise, 2)) * AV                   # (B,)
+    prev_e = decode.bloom_line_width(sums, max_e.contiguous())
+    line_w = (AV * 112 // 128) + (prev_e >> 9)
+    dx = (line_w << 12) // outw
+    scan_l = ((AV // 2) - (line_w >> 1) + 8) << 12
+    p = torch.arange(outw, dtype=torch.int32, device=dev)
+    valid = scan_l[..., None] + p * dx[..., None] < ((AV - 1) << 12)
+    return dx, scan_l >> 12, valid
+
+
 def _place_rows(rgb, out_prev, beg_l, end_l, active_l, blend, scanlines,
-                outh: int) -> torch.Tensor:
+                outh: int, *, valid=None, field_px=None,
+                v_fac: int = 0) -> torch.Tensor:
     """The reference's sequential row writes (store at `beg`, duplicate up to
     `end - scanlines`, 50/50 blend against the previous contents;
-    crt_core.c:552-664) as one per-output-row gather: each row takes the
-    last line that covers it.  "Last line wins" equals the C semantics
-    whenever line begs strictly increase — true iff outh + v_fac >=
-    CRT_LINES (e.g. 480 >= 240)."""
+    crt_core.c:552-664).
+
+    Kernel K6 takes the uniform case — JAX's gate (demodulate.py:1275-1279):
+    no `valid` plane, blend and scanlines host ints, (outh + v_fac) % L == 0
+    and 0 <= scanlines < ratio = (outh + v_fac) // L — when also outh ==
+    ratio * L.  Otherwise one per-output-row gather: each row takes the last
+    line that covers it.  "Last line wins" equals the C semantics whenever
+    line begs strictly increase — true iff outh + v_fac >= CRT_LINES (e.g.
+    480 >= 240).  valid (bool (B, L, outw), bloom): a pixel outside its
+    line's drawn width keeps the previous contents of the line's beg row."""
     B, L = rgb.shape[0], rgb.shape[1]
     dev = rgb.device
+    host = (int, np.integer)
+    if (valid is None and field_px is not None and isinstance(blend, host)
+            and isinstance(scanlines, host) and (outh + v_fac) % L == 0):
+        ratio = (outh + v_fac) // L
+        if 0 <= scanlines < ratio and outh == ratio * L:
+            fp = ((((outh << 16) // L) + 32768) >> 16) // 2
+            return place.place_rows_uniform(
+                rgb, out_prev, field_px.contiguous(), blend=bool(blend),
+                scanlines=int(scanlines), ratio=ratio, fp=fp)
+    scanlines = _b(scanlines, B, dev)
     end_c = torch.clamp(end_l, max=outh)
     cov_end = torch.maximum(beg_l + 1, end_c - scanlines[:, None])
 
@@ -372,12 +462,17 @@ def _place_rows(rgb, out_prev, beg_l, end_l, active_l, blend, scanlines,
     lsel = last.clamp(min=0)
 
     content = fastpath.select_rows_batched(rgb, lsel)     # (B, outh, outw, 3)
-    # a blend known to be off on the host skips the previous-frame gather
-    if torch.is_tensor(blend) or np.any(blend):
+    # a blend known to be off on the host skips the blend
+    blend_on = torch.is_tensor(blend) or np.any(blend)
+    if blend_on or valid is not None:
         beg_sel = torch.gather(beg_l, 1, lsel.long())
         old_at_beg = fastpath.select_rows_batched(out_prev,
                                                   beg_sel.clamp(0, outh - 1))
+    if blend_on:
         blended = (content >> 1) + (old_at_beg >> 1)      # crt_core.c:608
         on = _b(blend, B, dev) != 0
         content = torch.where(on[:, None, None, None], blended, content)
+    if valid is not None:
+        vsel = fastpath.select_rows_batched(valid, lsel)  # (B, outh, outw)
+        content = torch.where(vsel[..., None], content, old_at_beg)
     return torch.where(exists[..., None, None], content, out_prev)

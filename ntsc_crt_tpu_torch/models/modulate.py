@@ -115,8 +115,17 @@ def _field_constants(cfg: SystemConfig, device: torch.device):
                  for a in build_skeletons(cfg) + (video_rows_mask(cfg),))
 
 
-def _dest_size(cfg: SystemConfig, raw: bool, img_w: int, img_h: int):
-    """destw/desth sizing (crt_ntsc.c:148-173)."""
+def _dest_size(cfg: SystemConfig, raw: bool, img_w: int, img_h: int,
+               do_bloom: bool = False):
+    """destw/desth sizing (crt_ntsc.c:148-173); CRT_DO_BLOOM draws a
+    smaller picture."""
+    if do_bloom:
+        destw = (cfg.av_len * 55500) >> 16
+        desth = (cfg.lines * 63500) >> 16
+        if raw:
+            destw = min(img_w, destw)
+            desth = min(img_h, desth)
+        return destw, desth
     destw, desth = cfg.av_len, (cfg.lines * 64500) >> 16
     if raw:
         destw = min(img_w, cfg.av_len)
@@ -158,10 +167,11 @@ def modulate_rgb(
     field, frame, hue, as_color=1,
     xoffset: int = 0, yoffset: int = 0,
     black_point=0, white_point=100,
-    raw: bool = False,
+    raw: bool = False, do_bloom: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (analog', ccf') — ccf' is the encoder's burst export
-    (iccf << 7, crt_ntsc.c:325-329), shape (B, cc_vper, cc_samples) int32."""
+    (iccf << 7, crt_ntsc.c:325-329), shape (B, cc_vper, cc_samples) int32.
+    do_bloom: the CRT_DO_BLOOM destination sizing."""
     if not (cfg.kind == "rgb" and cfg.cc_samples == 4):
         raise ValueError(f"{cfg.name}: not an NTSC-family encoder")
     dev = analog.device
@@ -174,7 +184,7 @@ def modulate_rgb(
     white_point = _b(white_point, B, dev)
     CC = cfg.cc_samples
 
-    destw, desth = _dest_size(cfg, raw, w, h)
+    destw, desth = _dest_size(cfg, raw, w, h, do_bloom)
     xo = (cfg.av_beg + xoffset + (cfg.av_len - destw) // 2) & ~3  # :203
     yo = cfg.top + yoffset + (cfg.lines - desth) // 2
 
@@ -256,15 +266,13 @@ def modulate_vhs(
     do_aberration on (an int or a (B,) tensor), one crt_rand draw picks
     6..17 bottom lines that lose their sync tips (:234-238) — and a zeroed
     ccf export (:330-335).  The per-frame hsync reset (:258) is the
-    pipeline's.  Returns (analog', ccf_zero, randstate')."""
-    if do_bloom:
-        raise NotImplementedError(
-            f"{cfg.name}: CRT_DO_BLOOM sizing is not ported "
-            "(ROADMAP Queue 1, M8)")
+    pipeline's.  do_bloom: the CRT_DO_BLOOM destination sizing
+    (crt_ntscvhs.c:149-156).  Returns (analog', ccf_zero, randstate')."""
     analog, _ = modulate_rgb(
         cfg, analog, img, field=field, frame=frame, hue=hue,
         as_color=as_color, xoffset=xoffset, yoffset=yoffset,
-        black_point=black_point, white_point=white_point, raw=raw)
+        black_point=black_point, white_point=white_point, raw=raw,
+        do_bloom=do_bloom)
     dev = analog.device
     B = analog.shape[0]
     do_ab = _b(do_aberration, B, dev) != 0

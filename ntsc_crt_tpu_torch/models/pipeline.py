@@ -6,10 +6,11 @@ tensors threaded through plain functions that return a new state.  The
 compute cores are batch-first: a single-frame state (analog (VRES, HRES)) is
 lifted to a batch of one and back.
 
-The NTSC and NTSC-VHS presets with the default three-band decode are
-ported; every other preset or build variant raises NotImplementedError
-naming its ROADMAP item.  State lives on the CUDA card unless the caller
-asks for the CPU (``device="cpu"``).
+The NTSC, NTSC_RAINBOW and NTSC-VHS presets are ported, with the
+reference's decode build variants as keywords (eq_mode, do_bloom, do_vsync,
+do_hsync); every other preset raises NotImplementedError naming its ROADMAP
+item.  State lives on the CUDA card unless the caller asks for the CPU
+(``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -109,14 +110,16 @@ def _unlift(state: CRTState, batched: bool) -> CRTState:
 def modulate(cfg: SystemConfig, state: CRTState, img: torch.Tensor, *,
              field=0, frame=0, hue=0, as_color=1, xoffset: int = 0,
              yoffset: int = 0, black_point=0, white_point=100,
-             raw: bool = False, do_aberration=0) -> CRTState:
+             raw: bool = False, do_aberration=0,
+             do_bloom: bool = False) -> CRTState:
     """Encode one frame (or a batch) into the analog buffer.  img: uint8
     ([B,] h, w, 3) on the state's device.  do_aberration (an int or a (B,)
-    tensor) reaches the VHS presets only, like the reference's."""
+    tensor) reaches the VHS presets only, like the reference's; do_bloom
+    (CRT_DO_BLOOM) shrinks the drawn picture."""
     state, img, batched = _lift(state, img)
     kw = dict(field=field, frame=frame, hue=hue, as_color=as_color,
               xoffset=xoffset, yoffset=yoffset, black_point=black_point,
-              white_point=white_point, raw=raw)
+              white_point=white_point, raw=raw, do_bloom=do_bloom)
     if cfg.name.startswith("NTSCVHS"):
         analog, ccf, randstate = _mod.modulate_vhs(
             cfg, state.analog, img, state.randstate,
@@ -124,25 +127,33 @@ def modulate(cfg: SystemConfig, state: CRTState, img: torch.Tensor, *,
         # hsync resets each frame so only the bottom warps (crt_ntscvhs.c:258)
         state = state._replace(analog=analog, ccf=ccf, randstate=randstate,
                                hsync=torch.zeros_like(state.hsync))
-    elif cfg.name == "NTSC":
+    elif cfg.kind == "rgb" and cfg.cc_vper == 1:          # NTSC, NTSC_RAINBOW
         analog, ccf = _mod.modulate_rgb(cfg, state.analog, img, **kw)
         state = state._replace(analog=analog, ccf=ccf)
     else:
         raise NotImplementedError(
-            f"{cfg.name}: only the NTSC and NTSC-VHS encoders are ported "
-            "(ROADMAP Queue 1, M7 and M8)")
+            f"{cfg.name}: only the NTSC, NTSC_RAINBOW and NTSC-VHS encoders "
+            "are ported (ROADMAP Queue 1, M7)")
     return _unlift(state, batched)
 
 
 def demodulate(cfg: SystemConfig, state: CRTState, noise=0,
                mon: Optional[MonitorParams] = None, *,
-               v_fac: int = 0) -> CRTState:
-    """Decode the analog buffer into the output image (crt_demodulate)."""
+               v_fac: int = 0, eq_mode: str = "threeband",
+               do_bloom: bool = False, do_vsync: bool = True,
+               do_hsync: bool = True) -> CRTState:
+    """Decode the analog buffer into the output image (crt_demodulate).
+    eq_mode: "threeband" or "conv7"/"conv6"/"conv5"/"conv4" for the
+    reference's USE_CONVOLUTION builds; do_bloom the CRT_DO_BLOOM build;
+    do_vsync/do_hsync=False the CRT_DO_VSYNC/CRT_DO_HSYNC=0 builds (fixed
+    sync positions, crt_core.h:71-72)."""
     mon = mon or MonitorParams()
     state, _, batched = _lift(state, None)
     out, new = _dem.demodulate_core(
         cfg, state.analog, state.out, state.hsync, state.vsync, state.ccf,
-        state.rn, noise, mon, randstate=state.randstate, v_fac=v_fac)
+        state.rn, noise, mon, randstate=state.randstate, v_fac=v_fac,
+        eq_mode=eq_mode, do_bloom=do_bloom, do_vsync=do_vsync,
+        do_hsync=do_hsync)
     state = state._replace(out=out, **new)
     return _unlift(state, batched)
 
@@ -150,27 +161,34 @@ def demodulate(cfg: SystemConfig, state: CRTState, noise=0,
 def step(cfg: SystemConfig, state: CRTState, img: torch.Tensor, *,
          field=0, frame=0, hue=0, noise=0,
          mon: Optional[MonitorParams] = None, as_color=1, raw: bool = False,
-         do_aberration=0, v_fac: int = 0) -> CRTState:
+         do_aberration=0, v_fac: int = 0, do_bloom: bool = False,
+         eq_mode: str = "threeband", do_vsync: bool = True,
+         do_hsync: bool = True) -> CRTState:
     """modulate + demodulate: one full frame through the composite path.
     black_point/white_point are read by both the encoder and the decoder in
     the reference (crt_ntsc.c:311,318; crt_core.c:305), so they come from
-    `mon`."""
+    `mon`.  The reference's compile-time build variants are keywords:
+    do_bloom (CRT_DO_BLOOM, crt_core.h:70), eq_mode (USE_CONVOLUTION,
+    crt_core.c:85-147), do_vsync/do_hsync (crt_core.h:71-72)."""
     mon = mon or MonitorParams()
     state = modulate(cfg, state, img, field=field, frame=frame, hue=hue,
                      as_color=as_color, black_point=mon.black_point,
                      white_point=mon.white_point, raw=raw,
-                     do_aberration=do_aberration)
-    return demodulate(cfg, state, noise=noise, mon=mon, v_fac=v_fac)
+                     do_aberration=do_aberration, do_bloom=do_bloom)
+    return demodulate(cfg, state, noise=noise, mon=mon, v_fac=v_fac,
+                      eq_mode=eq_mode, do_bloom=do_bloom, do_vsync=do_vsync,
+                      do_hsync=do_hsync)
 
 
 def step_batch(cfg: SystemConfig, states: CRTState, imgs: torch.Tensor,
                fields, frames, dcos, *, noise=0,
                mon: Optional[MonitorParams] = None,
-               do_aberration=0) -> CRTState:
+               do_aberration=0, **step_kw) -> CRTState:
     """The full step over a frame batch — make_batched_step
-    (parallel/mesh.py:68-102) without sharding or donation.  dcos (the
-    dot-crawl offsets) only reach NES-family encoders, which are not
+    (parallel/mesh.py:68-102) without sharding or donation; step_kw
+    (do_bloom, eq_mode, do_vsync, do_hsync, v_fac) forward to step.  dcos
+    (the dot-crawl offsets) only reach NES-family encoders, which are not
     ported."""
     del dcos
     return step(cfg, states, imgs, field=fields, frame=frames, noise=noise,
-                mon=mon, do_aberration=do_aberration)
+                mon=mon, do_aberration=do_aberration, **step_kw)

@@ -5,7 +5,8 @@ Counterpart of ``ntsc_crt_tpu/ops/filters.py``:
 * encode side — a 1-pole IIR low-pass per Y/I/Q channel, state reset per
   scanline (crt_ntsc.c:89-126);
 * decode side — a 3-band equalizer built from two cascaded 4-stage one-pole
-  low-pass chains plus a 3-deep delay line (crt_core.c:151-233).
+  low-pass chains plus a 3-deep delay line (crt_core.c:151-233), or the
+  short FIR of the reference's USE_CONVOLUTION build (crt_core.c:96-147).
 
 Both round or truncate on every sample, so the recurrences are serial along
 x.  These plain versions march x in a Python loop, vectorised over every
@@ -95,3 +96,26 @@ def eq_threeband(s: torch.Tensor, lf, hf, g_lo, g_mid, g_hi) -> torch.Tensor:
                   + (((h[2] - fH[3]) * g2) >> EQ_P))
         h = [sx, h[0], h[1]]
     return out.movedim(0, -1)
+
+
+# taps -> (weights, shift) of the convolution EQ builds (crt_core.c:130-145);
+# only valid for 4-sample chroma systems (crt_core.c:90-94)
+_CONV_EQ_KERNELS = {
+    7: ([1, 4, 7, 8, 7, 4, 1], 5),
+    6: ([1, 3, 4, 4, 3, 1], 4),
+    5: ([1, 2, 2, 2, 1], 3),
+    4: ([1, 1, 1, 1], 2),
+}
+
+
+def eq_convolution(s: torch.Tensor, taps: int = 7) -> torch.Tensor:
+    """out_i = (sum_k w_k * s_{i-k}) >> shift along the last axis, zeros
+    before the line start — eqf() in the USE_CONVOLUTION build."""
+    weights, shift = _CONV_EQ_KERNELS[taps]
+    s = i32(s)
+    n = s.shape[-1]
+    out = torch.zeros_like(s)
+    for k, wk in enumerate(weights):
+        if k < n:
+            out[..., k:] += wk * s[..., :n - k]
+    return out >> shift

@@ -33,7 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _SIGNATURES = {
     "ntsc_encode_rows": "ppppppp" + "i" * 11 + "p",
     "ntsc_hsync_chase": "pppp" + "i" * 7 + "p",
-    "ntsc_decode_rows": "pppppppp" + "i" * 8 + "p",
+    "ntsc_decode_rows": "p" * 10 + "i" * 10 + "p",
+    "ntsc_bloom_line_width": "ppp" + "ii" + "p",
+    "ntsc_place_rows_uniform": "pppp" + "i" * 7 + "p",
     "ntsc_ccf_ema": "pppppp" + "i" * 5 + "p",
     "ntsc_vhs_region_b_entries": "pp" + "i" * 3 + "p",
 }

@@ -1,16 +1,29 @@
-"""K2 ``decode_rows``: the per-line decode, three-band mode.
+"""K2 ``decode_rows``, the per-line decode, and ``bloom_line_width``.
 
 Per (frame, line) row: sig[t] = concat(rows[b, row0 + l], rows[b, row0 + l
 + 1])[shift + t] (the reference's flat `sig[pos + i]` reads,
-crt_core.c:538-543); Y = sig + bright, I/Q = sig * wave[t % cc] >> 9; a
-3-band EQ per channel (crt_core.c:206-233); oy << 4, oi >> 3, oq >> 3; the
-static lerp scan conversion to outw pixels; YIQ -> RGB, contrast and clamp
+crt_core.c:538-543); Y = sig + bright, I/Q = sig * wave[t % cc] >> 9; an
+EQ per channel — the 3-band equalizer (crt_core.c:206-233) or, with
+``coefs=("conv", taps)``, the FIR of the USE_CONVOLUTION build
+(crt_core.c:96-147, 4-sample chroma only); oy << 4, oi >> 3, oq >> 3; the
+lerp scan conversion to outw pixels; YIQ -> RGB, contrast and clamp
 (crt_core.c:555-611).
 
+Bloom mode (``bloom_dx``/``bloom_lidx``, crt_core.c:512-532): row r draws
+pixel p from samples t = max((p * dx[r]) >> 12, 0) and t + 1 instead of the
+static map; the caller has folded the line's EQ start lidx into `shifts`
+and the wave tables.  As in the TPU kernel (decode_fused.py:231-266) the EQ
+runs on zero input from av_len to the next multiple of its 32-sample chunk
+(40 for 5-sample chroma), both sources clamp to that length, and the right
+source reads zero where t + 1 == av_len - 1 - lidx: the reference never
+writes out[AV_LEN - 1].  Pixels past the drawn line are masked later, in
+row placement.
+
 Replaces ``ntsc_crt_tpu/ops/pallas/decode_fused.py::decode_fused_rows`` in
-three-band mode.  A CPU tensor runs the plain torch version below (the
-portable decode of ``models/demodulate.py:983-1086``); a CUDA tensor
-launches csrc/decode.cu.
+all three modes; ``bloom_line_width`` replaces the lax.scan of
+``ntsc_crt_tpu/models/demodulate.py:880-887``.  A CPU tensor runs the plain
+torch version below (the portable decode of ``models/demodulate.py:983-1086``);
+a CUDA tensor launches csrc/decode.cu.
 """
 
 from __future__ import annotations
@@ -20,26 +33,55 @@ import ctypes
 import torch
 
 from ntsc_crt_tpu_torch.ops import fastpath, filters
+from ntsc_crt_tpu_torch.ops.fixedpoint import cdiv
 
-# kernel launches since the last reset (read by chip_smoke.py)
-LAUNCHES = 0
+# kernel launches since the last reset (read by chip_smoke.py), one count
+# per mode: each launch adds to exactly one of the three decode counts
+LAUNCHES = 0              # 3-band EQ, static scan conversion
+CONV_LAUNCHES = 0         # convolution EQ, static scan conversion
+BLOOM_LAUNCHES = 0        # bloom scan conversion, either EQ
+LINE_WIDTH_LAUNCHES = 0   # bloom_line_width
+
+
+def eq_len(av_len: int, cc: int) -> int:
+    """Samples the bloom-mode EQ runs: av_len rounded up to the TPU
+    kernel's chunk (decode_fused.py:68-72, 302-303)."""
+    chunk = 32 if cc == 4 else 40
+    return -(-av_len // chunk) * chunk
+
+
+def _eq_code(coefs) -> tuple[int, list[int]]:
+    """(eq selector, host ints) as ntsc_decode_rows takes them."""
+    if coefs[0] == "conv":
+        weights, shift = filters._CONV_EQ_KERNELS[coefs[1]]
+        return coefs[1], [*weights, shift]
+    return 0, [int(v) for c in coefs for v in c]
 
 
 def decode_rows(rows: torch.Tensor, shifts: torch.Tensor, waveI: torch.Tensor,
                 waveQ: torch.Tensor, bright: torch.Tensor,
                 contrast: torch.Tensor, *, row0: int, coefs, av_len: int,
-                outw: int) -> torch.Tensor:
+                outw: int, bloom_dx: torch.Tensor = None,
+                bloom_lidx: torch.Tensor = None) -> torch.Tensor:
     """rows int8 (B, NR, H) with NR >= row0 + L + 1; shifts int32 (B, L),
     each line's active-video start; waveI/waveQ int32 (B, L, cc), cc = 4 or
-    5; bright/contrast int32 (B, L); coefs three filters.EQCoefs (Y, I, Q).
-    Returns uint8 (B, L, outw, 3).  Samples past the two rows read as 0."""
+    5; bright/contrast int32 (B, L); coefs three filters.EQCoefs (Y, I, Q)
+    or ("conv", taps) with taps 4..7 (cc = 4 only); bloom_dx/bloom_lidx
+    int32 (B, L), together, for bloom mode.  Returns uint8 (B, L, outw, 3).
+    Samples past the two rows read as 0."""
+    conv = coefs[0] == "conv"
+    if conv and coefs[1] not in filters._CONV_EQ_KERNELS:
+        raise ValueError(f"decode_rows: no {coefs[1]}-tap convolution EQ")
+    if (bloom_dx is None) != (bloom_lidx is None):
+        raise ValueError("decode_rows: bloom_dx and bloom_lidx go together")
     if rows.device.type == "cpu":
         return decode_rows_plain(rows, shifts, waveI, waveQ, bright, contrast,
                                  row0=row0, coefs=coefs, av_len=av_len,
-                                 outw=outw)
+                                 outw=outw, bloom_dx=bloom_dx,
+                                 bloom_lidx=bloom_lidx)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    global LAUNCHES
+    global LAUNCHES, CONV_LAUNCHES, BLOOM_LAUNCHES
     dev = rows.device
     B, NR, H = rows.shape
     L, cc = shifts.shape[1], waveI.shape[2]
@@ -49,45 +91,125 @@ def decode_rows(rows: torch.Tensor, shifts: torch.Tensor, waveI: torch.Tensor,
     build.check("waveQ", waveQ, torch.int32, (B, L, cc), dev)
     build.check("bright", bright, torch.int32, (B, L), dev)
     build.check("contrast", contrast, torch.int32, (B, L), dev)
-    if cc not in (4, 5):
-        raise ValueError(f"decode_rows: cc must be 4 or 5, got {cc}")
+    bloom = bloom_dx is not None
+    if bloom:
+        build.check("bloom_dx", bloom_dx, torch.int32, (B, L), dev)
+        build.check("bloom_lidx", bloom_lidx, torch.int32, (B, L), dev)
+    if cc not in (4, 5) or (conv and cc != 4):
+        raise ValueError(f"decode_rows: cc must be 4 or 5 (4 with the "
+                         f"convolution EQ), got {cc}")
     if not (row0 >= 0 and NR >= row0 + L + 1 and 2 <= av_len <= H
             and outw >= 1):
         raise ValueError(f"decode_rows: bad geometry NR={NR} row0={row0} "
                          f"L={L} H={H} av_len={av_len} outw={outw}")
     out = torch.empty((B, L, outw, 3), dtype=torch.uint8, device=dev)
-    k = (ctypes.c_int * 15)(*[int(v) for c in coefs for v in c])
+    eq, ints = _eq_code(coefs)
+    k = (ctypes.c_int * len(ints))(*ints)
     build.launch("ntsc_decode_rows", rows.data_ptr(), shifts.data_ptr(),
                  waveI.data_ptr(), waveQ.data_ptr(), bright.data_ptr(),
-                 contrast.data_ptr(), ctypes.addressof(k), out.data_ptr(),
-                 B, L, NR, H, row0, av_len, outw, cc, build.stream(dev))
-    LAUNCHES += 1
+                 contrast.data_ptr(), bloom_dx.data_ptr() if bloom else None,
+                 bloom_lidx.data_ptr() if bloom else None, ctypes.addressof(k),
+                 out.data_ptr(), B, L, NR, H, row0, av_len,
+                 eq_len(av_len, cc) if bloom else av_len, outw, cc, eq,
+                 build.stream(dev))
+    if bloom:
+        BLOOM_LAUNCHES += 1
+    elif conv:
+        CONV_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
 def decode_rows_plain(rows, shifts, waveI, waveQ, bright, contrast, *,
-                      row0: int, coefs, av_len: int,
-                      outw: int) -> torch.Tensor:
+                      row0: int, coefs, av_len: int, outw: int,
+                      bloom_dx=None, bloom_lidx=None) -> torch.Tensor:
     """The same decode in plain torch: align, demodulate, one vectorised EQ
     march over every row and channel, gather-lerp, YIQ -> RGB."""
     B, L = shifts.shape
-    H = rows.shape[2]
+    H, cc = rows.shape[2], waveI.shape[2]
+    bloom = bloom_dx is not None
+    n = eq_len(av_len, cc) if bloom else av_len
     ext = torch.cat([rows[:, row0:row0 + L], rows[:, row0 + 1:row0 + L + 1]],
                     dim=2).reshape(B * L, 2 * H)
     sig = fastpath.shift_rows(ext, shifts.reshape(-1),
                               av_len).reshape(B, L, av_len)
-    wv_i = fastpath.tile_period(waveI, av_len)
-    wv_q = fastpath.tile_period(waveQ, av_len)
+    sig = torch.nn.functional.pad(sig, (0, n - av_len))
+    wv_i = fastpath.tile_period(waveI, n)
+    wv_q = fastpath.tile_period(waveQ, n)
     stacked = torch.stack([sig + bright[..., None], (sig * wv_i) >> 9,
-                           (sig * wv_q) >> 9], dim=2)    # (B, L, 3, av_len)
-    per_chan = [torch.tensor([c[k] for c in coefs], dtype=torch.int32,
-                             device=rows.device) for k in range(5)]
-    eqd = filters.eq_threeband(stacked, *per_chan)
-    yv = fastpath.lerp_resample(eqd[:, :, 0] << 4, outw, 2)
-    iv = fastpath.lerp_resample(eqd[:, :, 1] >> 3, outw, 14)
-    qv = fastpath.lerp_resample(eqd[:, :, 2] >> 3, outw, 14)
+                           (sig * wv_q) >> 9], dim=2)    # (B, L, 3, n)
+    if coefs[0] == "conv":
+        eqd = filters.eq_convolution(stacked, coefs[1])
+    else:
+        per_chan = [torch.tensor([c[k] for c in coefs], dtype=torch.int32,
+                                 device=rows.device) for k in range(5)]
+        eqd = filters.eq_threeband(stacked, *per_chan)
+    oy, oi, oq = eqd[:, :, 0] << 4, eqd[:, :, 1] >> 3, eqd[:, :, 2] >> 3
+    if bloom:
+        p = torch.arange(outw, dtype=torch.int32, device=rows.device)
+        pos = p * bloom_dx[..., None]                     # (B, L, outw)
+        t = (pos >> 12).clamp(min=0)
+        ia = t.clamp(max=n - 1).long()
+        ib = (t + 1).clamp(max=n - 1).long()
+        zero = t + 1 == (av_len - 1 - bloom_lidx)[..., None]
+        Rw = pos & 0xFFF
+        Lw = 0xFFF - Rw
+
+        def lerp(v, sh):
+            a = torch.gather(v, 2, ia)
+            b = torch.where(zero, 0, torch.gather(v, 2, ib))
+            return ((a * Lw) >> sh) + ((b * Rw) >> sh)
+
+        yv, iv, qv = lerp(oy, 2), lerp(oi, 14), lerp(oq, 14)
+    else:
+        yv = fastpath.lerp_resample(oy, outw, 2)
+        iv = fastpath.lerp_resample(oi, outw, 14)
+        qv = fastpath.lerp_resample(oq, outw, 14)
     ct = contrast[..., None]
     r = (((yv + 3879 * iv + 2556 * qv) >> 12) * ct) >> 8
     g = (((yv - 1126 * iv - 2605 * qv) >> 12) * ct) >> 8
     b = (((yv - 4530 * iv + 7021 * qv) >> 12) * ct) >> 8
     return torch.stack([r, g, b], dim=-1).clamp(0, 255).to(torch.uint8)
+
+
+def bloom_line_width(sums: torch.Tensor, max_e: torch.Tensor) -> torch.Tensor:
+    """The beam-energy EMA of the bloom build (crt_core.c:512-520):
+    prev_e = prev_e*123/128 + (((max_e >> 1) - s) << 10) / max_e per line,
+    from 16384/8, C truncating divisions in wrapping int32.  sums int32
+    (B, L), each line's sample sum; max_e int32 (B,).  Returns prev_e int32
+    (B, L).  A zero max_e divides to -1, as XLA defines it."""
+    if sums.device.type == "cpu":
+        return bloom_line_width_plain(sums, max_e)
+    from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
+
+    global LINE_WIDTH_LAUNCHES
+    dev = sums.device
+    B, L = sums.shape
+    build.check("sums", sums, torch.int32, (B, L), dev)
+    build.check("max_e", max_e, torch.int32, (B,), dev)
+    out = torch.empty((B, L), dtype=torch.int32, device=dev)
+    build.launch("ntsc_bloom_line_width", sums.data_ptr(), max_e.data_ptr(),
+                 out.data_ptr(), B, L, build.stream(dev))
+    LINE_WIDTH_LAUNCHES += 1
+    return out
+
+
+def _cdiv_total(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """cdiv with d == 0 giving -1 and INT_MIN / -1 giving INT_MIN."""
+    odd = (d == 0) | (d == -1)
+    q = cdiv(a, torch.where(odd, 1, d))
+    return torch.where(d == 0, -1, torch.where(d == -1, -a, q))
+
+
+def bloom_line_width_plain(sums: torch.Tensor,
+                           max_e: torch.Tensor) -> torch.Tensor:
+    """The same chain as a torch loop over the lines."""
+    drive = _cdiv_total(((max_e[:, None] >> 1) - sums) << 10,
+                        max_e[:, None].expand_as(sums))
+    e = torch.full_like(max_e, 16384 // 8)
+    out = torch.empty_like(sums)
+    for l in range(sums.shape[1]):
+        e = cdiv(e * 123, 128) + drive[:, l]
+        out[:, l] = e
+    return out

@@ -1,5 +1,6 @@
-"""The five kernels of the port: plain versions against the JAX kernels,
-and CUDA kernels against the plain versions.
+"""K1-K5 of the port: plain versions against the JAX kernels, and CUDA
+kernels against the plain versions (K2's conv and bloom modes,
+bloom_line_width and K6: tests/test_torch_variants.py).
 
 On the CPU each plain version (the path a CPU tensor takes) is held against
 the Pallas kernel it replaces, run in interpret mode as the JAX package's own
@@ -294,32 +295,63 @@ def test_k5_kernel_matches_plain(cuda, B):
 # --- dispatch -----------------------------------------------------------------
 
 
+def k2_bloom_inputs():
+    x = k2_inputs(0, B=1, L=4, H=160, cc=4)
+    return dict(x, bloom_dx=np.full((1, 4), 4000, np.int32),
+                bloom_lidx=np.full((1, 4), 9, np.int32))
+
+
 @pytest.mark.parametrize("name", ["encode_rows", "decode_rows", "hsync_chase",
-                                  "ccf_ema", "vhs_region_b_entries"])
+                                  "ccf_ema", "vhs_region_b_entries",
+                                  "decode_rows_conv", "decode_rows_bloom",
+                                  "bloom_line_width", "place_rows_uniform"])
 def test_non_cpu_tensors_never_take_the_plain_version(name):
     """Only a CPU tensor takes the plain version.  Any other tensor goes to
     the kernel path, which refuses a tensor that is not on a CUDA device
     before it builds or launches anything."""
+    from ntsc_crt_tpu_torch.ops.kernels import place
+    k2 = dict(row0=1, av_len=64, outw=48)
     call = {
         "encode_rows": lambda x: encode.encode_rows(
             **x, coefs=IIR, xo_mod=0, destw=32),
         "decode_rows": lambda x: decode.decode_rows(
-            **x, row0=1, coefs=dem._eq_coefs(NTSC), av_len=64, outw=48),
+            **x, coefs=dem._eq_coefs(NTSC), **k2),
         "hsync_chase": lambda x: hsync.hsync_chase(**x, **K3),
         "ccf_ema": lambda x: ccf.ccf_ema(**x),
         "vhs_region_b_entries": lambda x: vhs.vhs_region_b_entries(
             **x, n_steps=19 * VHS_H, H=VHS_H),
+        "decode_rows_conv": lambda x: decode.decode_rows(
+            **x, coefs=("conv", 7), **k2),
+        "decode_rows_bloom": lambda x: decode.decode_rows(
+            **x, coefs=dem._eq_coefs(NTSC), **k2),
+        "bloom_line_width": lambda x: decode.bloom_line_width(**x),
+        "place_rows_uniform": lambda x: place.place_rows_uniform(
+            **x, blend=True, scanlines=1, ratio=2, fp=1),
     }[name]
     x = {"encode_rows": lambda: k1_inputs(0, B=1, h=9, w=20, desth=8, cc=4),
          "decode_rows": lambda: k2_inputs(0, B=1, L=4, H=160, cc=4),
          "hsync_chase": lambda: k3_inputs(0, B=1),
          "ccf_ema": lambda: k4_inputs(0, 1, 4, 10, 4, 1),
          "vhs_region_b_entries": lambda: dict(
-             st0=k5_seeds(0, 2).view(np.int32))}[name]()
-    launches = {"encode_rows": encode, "decode_rows": decode,
-                "hsync_chase": hsync, "ccf_ema": ccf,
-                "vhs_region_b_entries": vhs}[name]
-    n = launches.LAUNCHES
+             st0=k5_seeds(0, 2).view(np.int32)),
+         "decode_rows_conv": lambda: k2_inputs(0, B=1, L=4, H=160, cc=4),
+         "decode_rows_bloom": k2_bloom_inputs,
+         "bloom_line_width": lambda: dict(
+             sums=np.zeros((2, 8), np.int32), max_e=np.ones(2, np.int32)),
+         "place_rows_uniform": lambda: dict(
+             rgb=np.zeros((2, 4, 8, 3), np.uint8),
+             old=np.zeros((2, 8, 8, 3), np.uint8),
+             field_px=np.ones(2, np.int32))}[name]()
+    counter = {"encode_rows": (encode, "LAUNCHES"),
+               "decode_rows": (decode, "LAUNCHES"),
+               "hsync_chase": (hsync, "LAUNCHES"),
+               "ccf_ema": (ccf, "LAUNCHES"),
+               "vhs_region_b_entries": (vhs, "LAUNCHES"),
+               "decode_rows_conv": (decode, "CONV_LAUNCHES"),
+               "decode_rows_bloom": (decode, "BLOOM_LAUNCHES"),
+               "bloom_line_width": (decode, "LINE_WIDTH_LAUNCHES"),
+               "place_rows_uniform": (place, "LAUNCHES")}[name]
+    n = getattr(*counter)
     with pytest.raises(ValueError, match="expected a tensor on"):
         call({k: torch.as_tensor(v).to("meta") for k, v in x.items()})
-    assert launches.LAUNCHES == n
+    assert getattr(*counter) == n

@@ -135,9 +135,10 @@ def test_step_with_blend_scanlines_tall_output():
     (480, 1, 1), (480, 0, 0), (720, 1, 2), (720, 0, 1), (240, 1, 0)])
 def test_general_row_placement_matches_jax_uniform_branch(outh, blend,
                                                           scanlines):
-    """The port has only the general gather placement; JAX, given static
-    knobs and outh a multiple of the line count, takes its uniform stacked
-    branch (demodulate.py:1144-1256).  Slots mix even and odd fields."""
+    """The port's general gather placement (what _place_rows runs without
+    field_px or with tensor knobs); JAX, given static knobs and outh a
+    multiple of the line count, takes its uniform stacked branch
+    (demodulate.py:1144-1256).  Slots mix even and odd fields."""
     from ntsc_crt_tpu.models import demodulate as jdem
     from ntsc_crt_tpu_torch.models import demodulate as dem
     rng = np.random.default_rng(outh + blend + scanlines)
@@ -191,7 +192,7 @@ def test_port_imports_no_jax():
     `ntsc_crt_tpu.*`) is loaded by importing the port."""
     code = ("import sys, ntsc_crt_tpu_torch; "
             "from ntsc_crt_tpu_torch.utils import convert; "
-            "from ntsc_crt_tpu_torch.ops.kernels import ccf, vhs; "
+            "from ntsc_crt_tpu_torch.ops.kernels import ccf, place, vhs; "
             "assert 'jax' not in sys.modules, sorted(sys.modules); "
             "jp = [m for m in sys.modules if m == 'ntsc_crt_tpu' "
             "or m.startswith('ntsc_crt_tpu.')]; "

@@ -160,13 +160,24 @@ def test_modulate_vhs_matches_jax(do_aberration):
         eq(g, w, tag)
 
 
-def test_modulate_vhs_bloom_is_not_ported():
-    with pytest.raises(NotImplementedError, match="M8"):
-        mod.modulate_vhs(VHS, torch.zeros((1, VHS.vres, VHS.hres),
-                                          dtype=torch.int8),
-                         torch.zeros((1, 24, 32, 3), dtype=torch.uint8),
-                         torch.ones(1, dtype=torch.int32), field=0, frame=0,
-                         hue=0, do_bloom=True)
+def test_modulate_vhs_bloom_matches_jax():
+    """The CRT_DO_BLOOM destination sizing (crt_ntscvhs.c:149-156), raw and
+    not, from a random field buffer."""
+    rng = np.random.default_rng(4)
+    B = len(RANDSTATES)
+    analog = rng.integers(-128, 128, (B, VHS.vres, VHS.hres)).astype(np.int8)
+    img = rng.integers(0, 256, (B, 48, 64, 3)).astype(np.uint8)
+    for raw in (False, True):
+        got = mod.modulate_vhs(
+            VHS, torch.as_tensor(analog), torch.as_tensor(img),
+            torch.as_tensor(RANDSTATES), field=1, frame=0, hue=3,
+            do_aberration=1, raw=raw, do_bloom=True)
+        want = jax.jit(lambda a, im, r: jmod.modulate_vhs(
+            JVHS, a, im, r, field=1, frame=0, hue=3, do_aberration=1,
+            raw=raw, do_bloom=True))(
+            jnp.asarray(analog), jnp.asarray(img), jnp.asarray(RANDSTATES))
+        for tag, g, w in zip(("analog", "ccf", "randstate"), got, want):
+            eq(g, w, f"raw={raw} {tag}")
 
 
 @pytest.mark.parametrize("noise,randstate", [(0, -5), (7, 2**31 - 1),
