@@ -8,41 +8,59 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. device  — the card's name and power limit (nvidia-smi); no CUDA, no run.
 2. build   — nvcc compiles ntsc_crt_tpu_torch/csrc/*.cu for sm_90a, one
    process per source, all started together.
-3. kernels — each kernel against its plain torch version on the card, on the
-   inputs the main paths hand it at batch 1 and 64 (640x480 output): K1
+3. op paths — the entry points of K7-K10, counted like the main paths (the
+   counts zeroed just before, read just after, each kernel must launch):
+   ops.filters.iir_lowpass on the NTSC encode's Y/I/Q rows (K7), the
+   unfused decode chain scanconv.decode_rows_unfused on the NTSC decode's
+   K2 inputs (K8 through ops.filters.eq_threeband, then K9), held to K2 at
+   0 LSB, and the issue-rate probe's report (K10, what `python -m
+   ntsc_crt_tpu_torch.ops.kernels.probe` prints).  The probe measures the
+   cycles per dependent op that prices every chain below.
+4. kernels — each kernel against its plain torch version on the card, on the
+   inputs the paths hand it at batch 1 and 64 (640x480 output): K1
    encode_rows, K2 decode_rows (3-band), K3 hsync_chase and K6
    place_rows_uniform from an NTSC step; K2 in conv mode from an NTSC
    eq_mode="conv7" step; K2 in bloom mode and bloom_line_width from an NTSC
    do_bloom step; K4 ccf_ema and K5 vhs_region_b_entries from an NTSCVHS
-   step.  Exact equality; each side's time from CUDA events; each kernel's
-   bound from these inputs (see BOUNDS below).
-4. goldens — tags NTSC, NTSC_b16, NTSCVHS, NTSCVHS_b16, NTSC_bloom and
-   NTSC_conv7 of tests/fixtures/device_parity_goldens.npz replayed through
-   step / step_batch on the card, bit-exact (NTSCVHS_b16: see
-   JAX_VSYNC_PICK_SLOTS).
-5. main paths — NTSC, NTSCVHS (do_aberration 1), NTSC with do_bloom and
-   NTSC with eq_mode="conv7", each 640x480, noise 12, field/frame
-   alternating: batch 1 from a 640x480 image (the live use) and batch 512
-   from 320x240 images (the throughput use).  The launch counts are zeroed
-   just before each path and read just after it: every kernel of the path
-   must have launched, and none that the path must not run.  Each path's
-   last step must equal the same step run on the CPU's plain path.  Then,
-   for each path and batch, one step timed stage by stage (host clock
-   around synchronized stages) and one step under torch.profiler (device
-   launches and busy time).
-6. variants — one batch-2 step each of fixed sync (do_vsync and do_hsync
-   False: K3 must not launch) and of the NTSC_RAINBOW preset, held to the
-   CPU's plain path.
+   step; K1 with a carrier table a row, K2 on 5-sample chroma at 1920-sample
+   lines, K3 and K4 (VP 5) from a PV1K step; K1 and K4 (VP 3) from a SNES
+   step; K7 on the Y/I/Q rows of the NTSC and PV1K K1 inputs; K8 on the
+   NTSC K2 inputs' Y/I/Q rows, K9 on K8's output, and the unfused chain
+   against K2; K10's three patterns at the TPU probe's size.  Exact
+   equality; each side's time from CUDA events; each kernel's bound from
+   these inputs (see BOUNDS below).
+5. goldens — all 11 tags of tests/fixtures/device_parity_goldens.npz (NTSC,
+   NTSC_b16, NTSCVHS, NTSCVHS_b16, NTSC_bloom, NTSC_conv7, PV1K, PV1K_b16,
+   NES, SNES, NESRGB) replayed through step / step_batch on the card,
+   bit-exact (NTSCVHS_b16: see JAX_VSYNC_PICK_SLOTS).
+6. main paths — NTSC, NTSCVHS (do_aberration 1), NTSC with do_bloom, NTSC
+   with eq_mode="conv7", PV1K and NES, each at 640x480 output, noise 12,
+   field/frame and dot crawl changing per slot and step: batch 1 from a
+   640x480 image (the live use) and batch 512 from 320x240 images (the
+   throughput use); NES from 256x240 PPU pixels at both.  The launch counts
+   are zeroed just before each path and read just after it: every kernel of
+   the path must have launched, and none that the path must not run (K7-K10
+   run on no pipeline path).  Each path's last step must equal the same
+   step run on the CPU's plain path.  Then, for each path and batch, one
+   step timed stage by stage (host clock around synchronized stages) and
+   one step under torch.profiler (device launches and busy time).
+7. variants — one batch-2 step each of fixed sync (do_vsync and do_hsync
+   False: K3 must not launch), NTSC_RAINBOW, SNES, TEMPLATE and NESRGB,
+   held to the CPU's plain path.
 
 BOUNDS: a kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once; of K6's previous frame only the rows
 this data needs) over 3.35 TB/s and the int32 instructions it executes on
-these inputs (counted from its source; where the work depends on the data,
-what this data needs) over the card's INT32 instruction rate, 132 SMs x 64
-lanes x 1.98 GHz (H100 SXM).  For the serial kernels (K3,
-K4, K5, bloom_line_width) the dependent chain of the longest entry is also
-priced at an assumed 4 cycles per dependent integer instruction and 260
-cycles per dependent load that hits L2, at 1.98 GHz (`chain`).
+these inputs (source ops counted from its source; where the work depends on
+the data, what this data needs) over the card's int32 source-op rate: the
+probe's `peak` rate measured in phase 3 of this run at the full-card size (a
+source op is often less than one SASS instruction, so this is above the
+issue ceiling of 132 SMs x 128 lanes x clock; the data sheet gives no int32
+rate).  For the serial kernels (K3, K4, K5, bloom_line_width, K7, K8, K10)
+the dependent chain of the longest entry is also priced (`chain`): the
+cycles per dependent source op that the probe measured in this run (eq1,
+one warp a scheduler), 260 cycles per dependent load that hits L2
+(assumed), at the SM clock read during the probe.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Every number is measured in this run.
@@ -81,6 +99,14 @@ ORIGIN = {  # kernel -> (CUDA source, the Pallas kernel's pallas_call)
                              "ntsc_crt_tpu/ops/pallas/vhs_scan.py:98"),
     "place_rows_uniform": ("ntsc_crt_tpu_torch/csrc/place.cu",
                            "ntsc_crt_tpu/ops/pallas/place_rows.py:255"),
+    "iir_lowpass_rows": ("ntsc_crt_tpu_torch/csrc/rowfilters.cu",
+                         "ntsc_crt_tpu/ops/pallas/filters_pallas.py:173"),
+    "eq_threeband_rows": ("ntsc_crt_tpu_torch/csrc/rowfilters.cu",
+                          "ntsc_crt_tpu/ops/pallas/filters_pallas.py:163"),
+    "scanconv_rows": ("ntsc_crt_tpu_torch/csrc/scanconv.cu",
+                      "ntsc_crt_tpu/ops/pallas/scanconv_pallas.py:51"),
+    "probe": ("ntsc_crt_tpu_torch/csrc/probe.cu",
+              "ntsc_crt_tpu/ops/pallas/vpu_probe.py:101"),
 }
 BLOOM = {"do_bloom": True}
 CONV7 = {"eq_mode": "conv7"}
@@ -89,6 +115,7 @@ FIXED_SYNC = {"do_vsync": False, "do_hsync": False}
 KERNEL_BATCHES = (1, 64)   # the kernel phase's batch sizes; the JSON line
 #                            reports the last
 MAIN_BATCH = 512           # the main paths' throughput batch
+PROBE_BLOCKS, PROBE_ITERS = 64, 4096   # the TPU probe's default size
 # Slots of the NTSCVHS_b16 golden that hold the JAX package's cross-slot
 # vsync pick (its demodulate.py:295 broadcasts the pick to (B, B) and takes
 # every slot's line from slot 0's candidates).  The port decodes each slot
@@ -97,10 +124,10 @@ MAIN_BATCH = 512           # the main paths' throughput batch
 JAX_VSYNC_PICK_SLOTS = {"NTSCVHS_b16": [5]}
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3, NVIDIA data sheet
-CLOCK_HZ = 1.98e9                    # H100 SXM boost clock
-INT32_PER_S = 132 * 64 * CLOCK_HZ    # SMs x INT32 lanes a cycle x clock
-DEP_CYCLES = 4                       # assumed: one dependent int instruction
 LOAD_CYCLES = 260                    # assumed: one dependent load from L2
+# measured by the probe in phase 3 of this run: cycles per dependent source
+# op, the SM clock (Hz) read meanwhile, and the peak int32 source-op rate
+MEASURED = {"dep_cycles": None, "sm_hz": None, "int32_per_s": None}
 
 
 def card_line() -> str:
@@ -146,6 +173,13 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def dep() -> float:
+    """Cycles per dependent source op, as the probe measured it."""
+    if MEASURED["dep_cycles"] is None:
+        raise SystemExit("chain priced before the probe measured it")
+    return MEASURED["dep_cycles"]
+
+
 def work_encode(a, k, out):
     """Per sample: resample index 2, RGB->YIQ 18, IIR 12, carrier 4, IRE 5,
     clamp 2 (csrc/encode.cu)."""
@@ -184,7 +218,7 @@ def work_line_width(a, k, out):
     them on the chain, and the store."""
     sums, _ = a
     B, L = sums.shape
-    return nbytes(*a, out), B * L * 30, L * 5 * DEP_CYCLES
+    return nbytes(*a, out), B * L * 30, L * 5 * dep()
 
 
 def work_place(a, k, out):
@@ -228,7 +262,7 @@ def work_hsync(a, k, out):
     hit = torch.cumsum(win, dim=2) <= k["thresh"]
     probes = torch.where(hit.any(2), hit.to(torch.int32).argmax(2) + 1, tW)
     ops = int(probes.sum()) * 3 + probes.numel() * 6
-    chain = (LOAD_CYCLES + (2 * probes + 4) * DEP_CYCLES).sum(1).max()
+    chain = (LOAD_CYCLES + (2 * probes + 4) * dep()).sum(1).max()
     return nbytes(rows2, active, h0, out), ops, int(chain)
 
 
@@ -239,7 +273,7 @@ def work_ccf(a, k, out):
     B, L, m, CC = per_cls.shape
     act = active.sum(1)
     ops = int(act.sum()) * m * CC * 6 + B * L * CC * 4
-    chain = int(act.max()) * m * 5 * DEP_CYCLES + L * 3 * DEP_CYCLES
+    chain = (int(act.max()) * m * 5 + L * 3) * dep()
     return nbytes(*a, *out), ops, chain
 
 
@@ -248,16 +282,49 @@ def work_vhs(a, k, out):
     and multiply-subtract, the test's multiply-add, compare, select, store —
     ten, eight of them on the chain (csrc/vhs.cu)."""
     n, B = out.shape
-    return nbytes(*a, out), n * B * 10, n * 8 * DEP_CYCLES
+    return nbytes(*a, out), n * B * 10, n * 8 * dep()
+
+
+def work_iir(a, k, out):
+    """Per sample: sub, mul, shift, add, all four on the row's chain."""
+    x, c = a
+    R, T = x.shape
+    return nbytes(x, c, out), R * T * 4, T * 4 * dep()
+
+
+def work_eq3(a, k, out):
+    """Per sample the 50 ops of the chain (eq3.cuh); each pole's own
+    recurrence is 5 a step and the 8 poles pipeline, so a row's chain is
+    5 a sample plus the 25 of the first output."""
+    x = a[0]
+    R, T = x.shape
+    return nbytes(*a, out), R * T * 50, (5 * T + 25) * dep()
+
+
+def work_scanconv(a, k, out):
+    """Per pixel: the source and weights 5, the tail test, three lerps of 5,
+    three channels of 9 (YIQ->RGB, contrast, clamp), the pack 4."""
+    return nbytes(*a, out), out.numel() * 52, None
+
+
+def work_probe(a, k, out):
+    """The source-counted ops of the pattern (probe.ops_per_iter); its
+    chain: an EQ iteration's 27 (probe.EQ1_CHAIN_OPS), a peak stream's 4."""
+    from ntsc_crt_tpu_torch.ops.kernels import probe
+    x, pattern = a
+    iters = k["iters"]
+    per = probe.EQ1_CHAIN_OPS if pattern != "peak" else 4
+    return (nbytes(x, out), x.numel() * iters * probe.ops_per_iter(pattern),
+            iters * per * dep())
 
 
 def bound(work):
     """(bound ms, "bytes" or "operations", chain ms or None)."""
     nb, ops, chain = work
-    t_bytes, t_ops = nb / HBM_BYTES_PER_S, ops / INT32_PER_S
+    t_bytes, t_ops = nb / HBM_BYTES_PER_S, ops / MEASURED["int32_per_s"]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations",
-            None if chain is None else chain / CLOCK_HZ * 1e3)
+            None if chain is None else chain / MEASURED["sm_hz"] * 1e3)
 
 
 class Kernel:
@@ -279,7 +346,8 @@ class Kernel:
 def kernel_modules():
     """name -> Kernel, for every kernel of ORIGIN."""
     from ntsc_crt_tpu_torch.ops.kernels import (ccf, decode, encode, hsync,
-                                                place, vhs)
+                                                place, probe, rowfilters,
+                                                scanconv, vhs)
     dec = lambda counter: Kernel(decode, "decode_rows", counter,  # noqa: E731
                                  decode.decode_rows_plain, work_decode)
     return {
@@ -302,23 +370,43 @@ def kernel_modules():
                                        work_vhs),
         "place_rows_uniform": Kernel(place, "place_rows_uniform", "LAUNCHES",
                                      place.place_rows_uniform_plain,
-                                     work_place)}
+                                     work_place),
+        "iir_lowpass_rows": Kernel(rowfilters, "iir_lowpass_rows",
+                                   "IIR_LAUNCHES",
+                                   rowfilters.iir_lowpass_rows_plain,
+                                   work_iir),
+        "eq_threeband_rows": Kernel(rowfilters, "eq_threeband_rows",
+                                    "EQ_LAUNCHES",
+                                    rowfilters.eq_threeband_rows_plain,
+                                    work_eq3),
+        "scanconv_rows": Kernel(scanconv, "scanconv_rows", "LAUNCHES",
+                                scanconv.scanconv_rows_plain, work_scanconv),
+        "probe": Kernel(probe, "probe", "LAUNCHES", probe.probe_plain,
+                        work_probe)}
 
 
 def path_args(B, i, dev):
-    """(fields, frames, dot-crawl offsets) of step i: alternating per slot."""
+    """(fields, frames, dot-crawl offsets) of step i: changing per slot."""
     slot = torch.arange(B, dtype=torch.int32, device=dev)
-    return ((slot + i) % 2, ((slot + i) >> 1) % 2,
-            torch.zeros(B, dtype=torch.int32, device=dev))
+    return ((slot + i) % 2, ((slot + i) >> 1) % 2, (slot + i) % 3)
+
+
+def frames_for(cfg, B, h, w, seed, dev):
+    """Seeded input frames: uint8 RGB (B, h, w, 3), or for NES uint16 PPU
+    pixels (B, 240, 256) whatever the size asked."""
+    rng = np.random.default_rng(seed)
+    if cfg.kind == "nes":
+        return torch.as_tensor(rng.integers(0, 512, (B, 240, 256),
+                                            dtype=np.uint16), device=dev)
+    return torch.as_tensor(rng.integers(0, 256, (B, h, w, 3),
+                                        dtype=np.uint8), device=dev)
 
 
 def capture_kernel_inputs(pipeline, cfg, B, names, dev, kw):
     """The arguments each named kernel's wrapper receives on the second
     step of a batch-B run (a locked, non-trivial state)."""
     mods = kernel_modules()
-    rng = np.random.default_rng(B)
-    imgs = torch.as_tensor(rng.integers(0, 256, (B, 240, 320, 3),
-                                        dtype=np.uint8), device=dev)
+    imgs = frames_for(cfg, B, 240, 320, B, dev)
     st = pipeline.init_batch(cfg, B, OUTW, OUTH, device=dev)
     st = pipeline.step_batch(cfg, st, imgs, *path_args(B, 0, dev), noise=12,
                              **kw)
@@ -337,60 +425,179 @@ def capture_kernel_inputs(pipeline, cfg, B, names, dev, kw):
     return {n: seen[mods[n].wrapper] for n in names}
 
 
+def k7_args(a, k):
+    """K7's rows from K1's arguments: every picture row's Y/I/Q after the
+    resample (crt_ntsc.c:296-310), (B * desth * 3, destw), each row with its
+    channel's IIR coefficient."""
+    from ntsc_crt_tpu_torch.ops.kernels import encode
+    img, sy = a[0], a[1]
+    B, w, dev = img.shape[0], img.shape[2], img.device
+    destw, coefs = k["destw"], k["coefs"]
+    sx = (torch.arange(destw, device=dev) * w) // destw
+    bi = torch.arange(B, device=dev)[:, None, None]
+    pix = img[bi, sy.long()[:, :, None], sx].to(torch.int32)
+    yiq = torch.stack(encode.rgb_to_yiq(pix), dim=-2)      # (B, desth, 3, w)
+    c = torch.tensor(coefs, dtype=torch.int32, device=dev)
+    return yiq, c
+
+
+def k8_args(a, k):
+    """K8's rows from K2's arguments: every line's Y/I/Q EQ input,
+    (B * L * 3, av_len), each row with its channel's coefficients."""
+    from ntsc_crt_tpu_torch.ops.kernels import scanconv
+    rows, shifts, waveI, waveQ, bright = a[:5]
+    stacked = scanconv.demod_rows(rows, shifts, waveI, waveQ, bright,
+                                  row0=k["row0"], av_len=k["av_len"])
+    R = stacked.shape[0] * stacked.shape[1]
+    cs = [torch.tensor([c[j] for c in k["coefs"]], dtype=torch.int32,
+                       device=rows.device).repeat(R) for j in range(5)]
+    return (stacked.reshape(-1, k["av_len"]).contiguous(), *cs), {}
+
+
+def k9_args(eqd, a, k):
+    """K9's rows from K8's output and K2's arguments: oy = eq << 4, oi/oq =
+    eq >> 3 (crt_core.c:540), (B * L, av_len) each."""
+    av = k["av_len"]
+    e = eqd.reshape(-1, 3, av)
+    return ((e[:, 0] << 4).contiguous(), (e[:, 1] >> 3).contiguous(),
+            (e[:, 2] >> 3).contiguous(), a[5].reshape(-1).contiguous()), \
+        dict(outw=k["outw"])
+
+
+def check_kernel(name, label, B, a, k, rows):
+    """The kernel against its plain version on the same inputs at 0 LSB,
+    both timed; records and prints the row; returns the kernel's result."""
+    kd = kernel_modules()[name]
+    kern = getattr(kd.mod, kd.wrapper)
+    got, want = kern(*a, **k), kd.plain(*a, **k)
+    torch.cuda.synchronize()
+    got_t = got if isinstance(got, tuple) else (got,)
+    want_t = want if isinstance(want, tuple) else (want,)
+    if [g.shape for g in got_t] != [w.shape for w in want_t]:
+        raise SystemExit(f"{name} {label} batch {B}: kernel shapes differ")
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip(got_t, want_t))
+    if err != 0:
+        raise SystemExit(f"{name} {label} batch {B}: kernel differs from "
+                         f"plain (max |err| {err})")
+    ms = cuda_ms(lambda: kern(*a, **k), 20)
+    plain_ms = cuda_ms(lambda: kd.plain(*a, **k), 1)
+    bound_ms, bound_by, chain_ms = bound(kd.work(a, k, got))
+    chain = "" if chain_ms is None else f", chain {chain_ms:.4f} ms"
+    print(f"kernel {name} batch {B} ({label}) shapes "
+          f"{[tuple(g.shape) for g in got_t]}: {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}){chain}, "
+          f"max |err| {err}", flush=True)
+    rows.setdefault(name, {})[(label, B)] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by)
+    return got
+
+
 def phase_kernels(pipeline, systems, dev):
-    """Each kernel vs its plain version at batch 1 and 64.  Returns
-    {name: {B: row}}."""
-    mods = kernel_modules()
+    """Each kernel vs its plain version at batch 1 and 64, on the inputs
+    each path hands it.  Returns {name: {(label, B): row}}, a kernel's
+    first label being the one its JSON row reports."""
+    from ntsc_crt_tpu_torch.ops.kernels import probe, scanconv
     groups = ((systems.NTSC, ("encode_rows", "decode_rows", "hsync_chase",
                               "place_rows_uniform"), {}),
               (systems.NTSC, ("decode_rows_conv",), CONV7),
               (systems.NTSC, ("decode_rows_bloom", "bloom_line_width"),
                BLOOM),
-              (systems.NTSCVHS, ("ccf_ema", "vhs_region_b_entries"), VHS_KW))
-    rows = {name: {} for name in mods}
+              (systems.NTSCVHS, ("ccf_ema", "vhs_region_b_entries"), VHS_KW),
+              (systems.PV1K, ("encode_rows", "decode_rows", "hsync_chase",
+                              "ccf_ema"), {}),
+              (systems.SNES, ("encode_rows", "ccf_ema"), {}))
+    rows = {}
     for cfg, names, kw in groups:
+        label = path_label(cfg, kw)
         for B in KERNEL_BATCHES:
             seen = capture_kernel_inputs(pipeline, cfg, B, names, dev, kw)
-            for name in names:
-                mod, plain, work = mods[name].mod, mods[name].plain, \
-                    mods[name].work
-                kern = getattr(mod, mods[name].wrapper)
-                a, k = seen[name]
-                got, want = kern(*a, **k), plain(*a, **k)
-                torch.cuda.synchronize()
-                got_t = got if isinstance(got, tuple) else (got,)
-                want_t = want if isinstance(want, tuple) else (want,)
-                err = max(int((g.to(torch.int64) - w.to(torch.int64))
-                              .abs().max()) for g, w in zip(got_t, want_t))
-                if [g.shape for g in got_t] != [w.shape for w in want_t] \
-                        or err != 0:
-                    raise SystemExit(f"{name} batch {B}: kernel differs "
-                                     f"from plain (max |err| {err})")
-                ms = cuda_ms(lambda: kern(*a, **k), 20)
-                plain_ms = cuda_ms(lambda: plain(*a, **k), 1)
-                bound_ms, bound_by, chain_ms = bound(work(a, k, got))
-                chain = ("" if chain_ms is None
-                         else f", chain {chain_ms:.4f} ms")
-                print(f"kernel {name} batch {B} ({cfg.name}) shapes "
-                      f"{[tuple(g.shape) for g in got_t]}: {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-                      f"({bound_by}){chain}, max |err| {err}", flush=True)
-                rows[name][B] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by)
+            got = {n: check_kernel(n, label, B, *seen[n], rows)
+                   for n in names}
+            if "encode_rows" in names and cfg.do_bandlimiting:
+                yiq, c = k7_args(*seen["encode_rows"])
+                x = yiq.reshape(-1, yiq.shape[-1]).contiguous()
+                check_kernel("iir_lowpass_rows", label, B,
+                             (x, c.repeat(x.shape[0] // 3)), {}, rows)
+            if "decode_rows" in names and cfg.cc_samples == 4:
+                a, k = seen["decode_rows"]
+                eqd = check_kernel("eq_threeband_rows", label, B,
+                                   *k8_args(a, k), rows)
+                check_kernel("scanconv_rows", label, B, *k9_args(eqd, a, k),
+                             rows)
+                unfused = scanconv.decode_rows_unfused(*a, **k)
+                if not torch.equal(unfused, got["decode_rows"]):
+                    raise SystemExit(f"{label} batch {B}: the unfused chain "
+                                     "(K8, K9) differs from K2")
+                print(f"unfused chain K8 -> K9 batch {B} ({label}): equals "
+                      "K2 at 0 LSB", flush=True)
+    x = probe.probe_input(PROBE_BLOCKS, dev)
+    for pattern in ("eq3", "eq1", "peak"):
+        check_kernel("probe", pattern, PROBE_BLOCKS, (x, pattern),
+                     dict(iters=PROBE_ITERS), rows)
     return rows
+
+
+def phase_ops(systems, dev):
+    """The entry points of K7-K10, counted: the IIR op on the NTSC encode's
+    Y/I/Q, the unfused decode chain on the NTSC decode's K2 inputs (held to
+    K2), the probe's report.  Sets MEASURED from the probe.  Returns the
+    launch counts."""
+    from ntsc_crt_tpu_torch.models import pipeline
+    from ntsc_crt_tpu_torch.ops import filters
+    from ntsc_crt_tpu_torch.ops.kernels import (decode, probe, rowfilters,
+                                                scanconv)
+    B = KERNEL_BATCHES[-1]
+    seen = capture_kernel_inputs(pipeline, systems.NTSC, B,
+                                 ("encode_rows", "decode_rows"), dev, {})
+    yiq, c = k7_args(*seen["encode_rows"])
+    a, k = seen["decode_rows"]
+    k2 = decode.decode_rows(*a, **k)                      # the yardstick
+    out = {}
+
+    def run():
+        out["iir"] = filters.iir_lowpass(yiq, c)
+        out["unfused"] = scanconv.decode_rows_unfused(*a, **k)
+        out["probe"] = probe.report()
+    launches, _ = counted(
+        "op entry points (iir_lowpass, the unfused decode, the probe)",
+        ("iir_lowpass_rows", "eq_threeband_rows", "scanconv_rows", "probe"),
+        run)
+    torch.cuda.synchronize()
+    if not torch.equal(out["iir"], rowfilters.iir_lowpass_rows_plain(yiq,
+                                                                      c)):
+        raise SystemExit("filters.iir_lowpass differs from its plain march")
+    if not torch.equal(out["unfused"], k2):
+        raise SystemExit("the unfused decode chain differs from K2")
+    print(f"op entry points: iir_lowpass on {tuple(yiq.shape)} equals the "
+          f"plain march; the unfused decode at batch {B} equals K2 at 0 LSB",
+          flush=True)
+    rep = out["probe"]
+    probe.print_report(rep)
+    MEASURED.update(dep_cycles=rep["dep_cycles"],
+                    sm_hz=rep["latency"]["sm_mhz"] * 1e6,
+                    int32_per_s=max(r["gops"] for r in rep["rows"]
+                                    if r["pattern"] == "peak") * 1e9)
+    print(f"bounds price int32 at {MEASURED['int32_per_s'] / 1e12:.2f} T "
+          f"source ops/s and chains at {MEASURED['dep_cycles']:.3f} cycles a "
+          f"dependent op, {MEASURED['sm_hz'] / 1e6:.0f} MHz", flush=True)
+    return launches
 
 
 # --- goldens ------------------------------------------------------------------
 
 
 def golden_run(pipeline, cfg, B, dev, kw):
-    """The recipe of bench.py:198-235: two 320x240 frames at 128x96 (B = 1,
-    unbatched state) or sixteen 80x60 slots through step_batch, noise 7;
-    the second step toggles field/frame; kw: the tag's build variant."""
+    """The recipe of bench.py:198-235: two 320x240 frames (NES: 256x240 PPU
+    pixels) at 128x96 (B = 1, unbatched state) or sixteen 80x60 slots
+    through step_batch, noise 7; the second step toggles field/frame; kw:
+    the tag's build variant."""
     if B == 1:
-        img = np.random.RandomState(0).randint(0, 256, (1, 240, 320, 3),
-                                               np.uint8)[0]
+        rng = np.random.RandomState(0)
+        img = (rng.randint(0, 512, (1, 240, 256), np.uint16)
+               if cfg.kind == "nes"
+               else rng.randint(0, 256, (1, 240, 320, 3), np.uint8))[0]
         st = pipeline.crt_init(cfg, 128, 96, device=dev)
         for f in (0, 1):
             st = pipeline.step(cfg, st, torch.as_tensor(img, device=dev),
@@ -413,7 +620,12 @@ def phase_goldens(pipeline, systems, dev):
             ("NTSCVHS", systems.NTSCVHS, 1, {}),
             ("NTSCVHS_b16", systems.NTSCVHS, 16, {}),
             ("NTSC_bloom", systems.NTSC, 1, BLOOM),
-            ("NTSC_conv7", systems.NTSC, 1, CONV7))
+            ("NTSC_conv7", systems.NTSC, 1, CONV7),
+            ("PV1K", systems.PV1K, 1, {}),
+            ("PV1K_b16", systems.PV1K, 16, {}),
+            ("NES", systems.NES, 1, {}),
+            ("SNES", systems.SNES, 1, {}),
+            ("NESRGB", systems.NESRGB, 1, {}))
     for tag, cfg, B, kw in runs:
         st = golden_run(pipeline, cfg, B, dev, kw)
         skip = JAX_VSYNC_PICK_SLOTS.get(tag, [])
@@ -554,14 +766,11 @@ def path_label(cfg, kw):
     return " ".join([cfg.name, *(f"{k}={v}" for k, v in kw.items())])
 
 
-def phase_path(pipeline, cfg, kw, needed, card, dev, steps1=30, stepsB=5):
+def phase_path(pipeline, cfg, kw, needed, card, dev, steps1=20, stepsB=5):
     """One main path at batch 1 and 512; returns the launch counts."""
-    rng = np.random.default_rng(1234)
-    img1 = torch.as_tensor(rng.integers(0, 256, (1, OUTH, OUTW, 3),
-                                        dtype=np.uint8), device=dev)
+    img1 = frames_for(cfg, 1, OUTH, OUTW, 1234, dev)
     B = MAIN_BATCH
-    imgsB = torch.as_tensor(rng.integers(0, 256, (B, 240, 320, 3),
-                                         dtype=np.uint8), device=dev)
+    imgsB = frames_for(cfg, B, 240, 320, 1235, dev)
     label = path_label(cfg, kw)
     mem = []
 
@@ -609,8 +818,7 @@ def phase_variant(pipeline, cfg, kw, needed, dev):
     """One batch-2 step at 640x480 from a stepped state, counted, and held
     to the CPU's plain path."""
     B = 2
-    imgs = torch.as_tensor(np.random.default_rng(7).integers(
-        0, 256, (B, 240, 320, 3), dtype=np.uint8), device=dev)
+    imgs = frames_for(cfg, B, 240, 320, 7, dev)
     st = pipeline.init_batch(cfg, B, OUTW, OUTH, device=dev)
     st = pipeline.step_batch(cfg, st, imgs, *path_args(B, 0, dev), noise=12,
                              **kw)
@@ -646,44 +854,56 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
 
-    # 3. kernels vs plain versions
+    # 3. the op entry points of K7-K10; the probe prices the chains below
+    launches = dict.fromkeys(ORIGIN, 0)
+    for k, n in phase_ops(systems, dev).items():
+        launches[k] += n
+
+    # 4. kernels vs plain versions
     table = phase_kernels(pipeline, systems, dev)
 
-    # 4. goldens
+    # 5. goldens
     phase_goldens(pipeline, systems, dev)
 
-    # 5. the main paths, each counted on its own; a kernel's launches are
-    # its counts summed over the paths
-    common = ("encode_rows", "hsync_chase", "ccf_ema")
-    paths = ((systems.NTSC, {}, common + ("decode_rows", "place_rows_uniform")),
+    # 6. the main paths, each counted on its own; a kernel's launches are
+    # its counts summed over the paths and the op entry points
+    common = ("hsync_chase", "ccf_ema", "decode_rows")
+    rgb = common + ("encode_rows",)
+    paths = ((systems.NTSC, {}, rgb + ("place_rows_uniform",)),
              (systems.NTSCVHS, VHS_KW,
-              common + ("decode_rows", "place_rows_uniform",
-                        "vhs_region_b_entries")),
+              rgb + ("place_rows_uniform", "vhs_region_b_entries")),
              (systems.NTSC, BLOOM,
-              common + ("decode_rows_bloom", "bloom_line_width")),
+              ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows_bloom",
+               "bloom_line_width")),
              (systems.NTSC, CONV7,
-              common + ("decode_rows_conv", "place_rows_uniform")))
-    launches = dict.fromkeys(ORIGIN, 0)
+              ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows_conv",
+               "place_rows_uniform")),
+             (systems.PV1K, {}, rgb + ("place_rows_uniform",)),
+             (systems.NES, {}, common + ("place_rows_uniform",)))
     for cfg, kw, needed in paths:
         for k, n in phase_path(pipeline, cfg, kw, needed, card, dev).items():
             launches[k] += n
 
-    # 6. the other variants: one step each
+    # 7. the other variants and encoder families: one step each
     phase_variant(pipeline, systems.NTSC, FIXED_SYNC,
                   ("encode_rows", "ccf_ema", "decode_rows",
                    "place_rows_uniform"), dev)
-    phase_variant(pipeline, systems.NTSC_RAINBOW, {},
-                  common + ("decode_rows", "place_rows_uniform"), dev)
+    for cfg in (systems.NTSC_RAINBOW, systems.SNES, systems.TEMPLATE,
+                systems.NESRGB):
+        phase_variant(pipeline, cfg, {}, rgb + ("place_rows_uniform",), dev)
+
+    def reported(k):          # a kernel's first label, at the last batch
+        label = next(iter(table[k]))[0]
+        return table[k][(label, PROBE_BLOCKS if k == "probe"
+                         else KERNEL_BATCHES[-1])]
 
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=ORIGIN[k][0], replaces=ORIGIN[k][1],
              launches=launches[k],
              max_abs_err=max(r["max_abs_err"] for r in table[k].values()),
-             ms=table[k][KERNEL_BATCHES[-1]]["ms"],
-             plain_ms=table[k][KERNEL_BATCHES[-1]]["plain_ms"],
-             bound_ms=table[k][KERNEL_BATCHES[-1]]["bound_ms"],
-             bound_by=table[k][KERNEL_BATCHES[-1]]["bound_by"],
-             library_ms=None)
+             ms=reported(k)["ms"], plain_ms=reported(k)["plain_ms"],
+             bound_ms=reported(k)["bound_ms"],
+             bound_by=reported(k)["bound_by"], library_ms=None)
         for k in ORIGIN]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -43,49 +43,12 @@
 // not carried over: the alignment is a direct indexed load.
 #include <cuda_runtime.h>
 
+#include "eq3.cuh"  // ThreeBand, the 3-band equalizer of one channel
 #include "int32.cuh"
 
 namespace {
 
-constexpr int EQ_P = 16;  // crt_core.c:155
-constexpr int EQ_R = 1 << (EQ_P - 1);
 constexpr int MAX_TAPS = 7;
-
-struct EqCoefs {
-    int lf, hf, g0, g1, g2;
-};
-
-__device__ __forceinline__ int pole(int f, int c, int x) {
-    return add32(f, add32(mul32(c, sub32(x, f)), EQ_R) >> EQ_P);
-}
-
-// the 3-band equalizer of one channel: eqf() (crt_core.c:206-233)
-struct ThreeBand {
-    using Coefs = EqCoefs;
-    int fL0, fL1, fL2, fL3, fH0, fH1, fH2, fH3, h0, h1, h2;
-
-    __device__ void reset() {
-        fL0 = fL1 = fL2 = fL3 = fH0 = fH1 = fH2 = fH3 = h0 = h1 = h2 = 0;
-    }
-
-    __device__ int step(int sx, const EqCoefs& c) {
-        fL0 = pole(fL0, c.lf, sx);
-        fH0 = pole(fH0, c.hf, sx);
-        fL1 = pole(fL1, c.lf, fL0);
-        fH1 = pole(fH1, c.hf, fH0);
-        fL2 = pole(fL2, c.lf, fL1);
-        fH2 = pole(fH2, c.hf, fH1);
-        fL3 = pole(fL3, c.lf, fL2);
-        fH3 = pole(fH3, c.hf, fH2);
-        const int out = add32(add32(mul32(fL3, c.g0) >> EQ_P,
-                                    mul32(sub32(fH3, fL3), c.g1) >> EQ_P),
-                              mul32(sub32(h2, fH3), c.g2) >> EQ_P);
-        h2 = h1;
-        h1 = h0;
-        h0 = sx;
-        return out;
-    }
-};
 
 struct FirCoefs {
     int w[MAX_TAPS];

@@ -3,7 +3,9 @@
 // thread.
 //
 // Replaces: ntsc_crt_tpu/ops/pallas/encode_fused.py::encode_fused_rows
-// (kernel body _make_kernel), in its rgb=True, col_map form.
+// (kernel body _make_kernel), in its rgb=True, col_map form.  As there,
+// every picture row has its own carrier tables: the SNES/TEMPLATE/PV1K and
+// NESRGB encoders pick a row's table by its vertical phase class.
 //
 // What bounds it on the H100: each row is a serial chain of destw samples
 // (the IIR state carries from sample to sample), so a thread's time is the
@@ -29,8 +31,8 @@ template <int CC>
 __global__ void encode_rows_kernel(
     const uint8_t* __restrict__ img,   // (B, h, w, 3)
     const int* __restrict__ sy,        // (B, desth) source row per output row
-    const int* __restrict__ modI,      // (B, CC) carrier tables, phase sign in
-    const int* __restrict__ modQ,      // (B, CC)
+    const int* __restrict__ modI,      // (B, desth, CC) carrier tables,
+    const int* __restrict__ modQ,      // phase sign in; (B, desth, CC)
     const int* __restrict__ gain,      // (B,)
     const int* __restrict__ base,      // (B,)
     int8_t* __restrict__ out,          // (B, desth, destw)
@@ -44,8 +46,8 @@ __global__ void encode_rows_kernel(
     int mi[CC], mq[CC];
 #pragma unroll
     for (int k = 0; k < CC; ++k) {
-        mi[k] = modI[b * CC + (k + xo_mod) % CC];
-        mq[k] = modQ[b * CC + (k + xo_mod) % CC];
+        mi[k] = modI[row * CC + (k + xo_mod) % CC];
+        mq[k] = modQ[row * CC + (k + xo_mod) % CC];
     }
     const int g = gain[b];
     const int bs = base[b];

@@ -1,8 +1,8 @@
 """Demodulator: sampled analog composite signals -> RGB, like a CRT would.
 
 Counterpart of ``ntsc_crt_tpu/models/demodulate.py`` (crt_demodulate,
-crt_core.c:291-666), batch-first, for 4-sample chroma systems, with the
-reference's decode build variants: the 3-band or convolution EQ
+crt_core.c:291-666), batch-first, for 4- and 5-sample chroma systems, with
+the reference's decode build variants: the 3-band or convolution EQ
 (USE_CONVOLUTION), bloom (CRT_DO_BLOOM) and fixed sync (CRT_DO_VSYNC /
 CRT_DO_HSYNC = 0).  Each stage keeps one formulation, the plain one:
 
@@ -14,7 +14,8 @@ CRT_DO_HSYNC = 0).  Each stage keeps one formulation, the plain one:
    the field parity, from the clean signal.
 3. **Per-line sequential state** — the hsync chase (kernel K3, or pinned
    to 0 with fixed hsync), the burst gather and the ccf carrier EMA (kernel
-   K4), then the decode waves; with bloom the line sums and their energy
+   K4), then the decode waves (4-sample IQ extraction, or the 5-sample
+   hue-rotated tables); with bloom the line sums and their energy
    EMA (kernel bloom_line_width) give each line its width.
 4. **Line decode** — alignment, Y/I/Q, EQ and scan conversion in kernel K2.
 5. **Row placement** — kernel K6 where every line covers the same number
@@ -55,9 +56,13 @@ class MonitorParams(NamedTuple):
 
 
 def _eq_coefs(cfg: SystemConfig):
-    """crt_init's EQ setup for 4-sample chroma (crt_core.c:277-287)."""
+    """crt_init's per-cc_samples EQ setup (crt_core.c:277-287)."""
     k = cfg.khz2l
-    y = filters.init_eq(k(1500), k(3000), cfg.hres, 65536, 8192, 9175)
+    gains = {4: (8192, 9175), 5: (12192, 7775)}
+    if cfg.cc_samples not in gains:
+        raise ValueError(f"{cfg.name}: cc_samples must be 4 or 5")
+    y = filters.init_eq(k(1500), k(3000), cfg.hres, 65536,
+                        *gains[cfg.cc_samples])
     i = filters.init_eq(k(80), k(1150), cfg.hres, 65536, 65536, 1311)
     q = filters.init_eq(k(80), k(1000), cfg.hres, 65536, 65536, 0)
     return y, i, q
@@ -221,13 +226,14 @@ def _find_vsync(cfg: SystemConfig, inp2d: torch.Tensor, vsync: torch.Tensor):
     return line.to(torch.int32), field
 
 
-def _line_scan(cfg: SystemConfig, inp2d, hsync0, ccf0, vsync, hue_sn, hue_cs,
-               saturation, outh: int, v_fac: int, field_px,
+def _line_scan(cfg: SystemConfig, inp2d, hsync0, ccf0, vsync, hue, hue_sn,
+               hue_cs, saturation, outh: int, v_fac: int, field_px,
                do_hsync: bool = True):
     """Per-line sequential pass: hsync chase, ccf EMA and the decode waves
-    (crt_core.c:409-536).  inp2d int8 (B, V, H); carries (B, ...).  Returns
-    (hsync', ccf', (xpos, beg, end, active, wave) per line, rolled4) where
-    rolled4[b, i] is field row (top + i + vsync) mod V, i < L + 4.
+    (crt_core.c:409-536).  inp2d int8 (B, V, H); carries (B, ...); hue the
+    monitor hue (B,).  Returns (hsync', ccf', (xpos, beg, end, active,
+    waveI, waveQ) per line, rolled4) where rolled4[b, i] is field row
+    (top + i + vsync) mod V, i < L + 4.
     do_hsync=False is the CRT_DO_HSYNC=0 build: no chase, hsync pinned."""
     CC = cfg.cc_samples
     B = inp2d.shape[0]
@@ -271,7 +277,10 @@ def _line_scan(cfg: SystemConfig, inp2d, hsync0, ccf0, vsync, hue_sn, hue_cs,
     vper_l = crem(ypos_l, cfg.cc_vper)                    # (B, L)
 
     # burst window of every line (crt_core.c:458-466)
-    bbase = (hsync_l & ~3) + cfg.cb_beg
+    if CC == 4:
+        bbase = (hsync_l & ~3) + cfg.cb_beg
+    else:
+        bbase = hsync_l - crem(hsync_l, CC) + cfg.cb_beg
     bidx = bbase.long()[..., None] + torch.arange(cfg.burst_len, device=dev)
     bvals = torch.gather(rows2, 2, bidx).to(torch.int32)  # (B, L, burst_len)
     m = cfg.burst_len // CC
@@ -280,21 +289,38 @@ def _line_scan(cfg: SystemConfig, inp2d, hsync0, ccf0, vsync, hue_sn, hue_cs,
     ccf_f, ccr_l = ccf.ccf_ema(per_cls.contiguous(), vper_l.contiguous(),
                                active_l.contiguous(), ccf0.contiguous())
 
-    # decode waves (4-sample IQ extraction, crt_core.c:471-479)
+    # decode waves (B, L, CC) for I and Q
     phasealign = posmod(hsync_l, CC)
 
     def pick(off):
         idx = crem(phasealign + off, CC).long()[..., None]
         return torch.gather(ccr_l, 2, idx)[..., 0]
 
-    dci = pick(1) - pick(3)
-    dcq = pick(2) - pick(0)
-    hs = hue_sn[:, None]
-    hc = hue_cs[:, None]
-    w0 = ((dci * hc - dcq * hs) >> 4) * saturation[:, None]
-    w1 = ((dcq * hc + dci * hs) >> 4) * saturation[:, None]
-    wave_l = torch.stack([w0, w1, -w0, -w1], dim=2)       # (B, L, 4)
-    return hsync_f, ccf_f, (xpos_l, beg_l, end_l, active_l, wave_l), rolled4
+    if CC == 4:  # 4-sample IQ extraction (crt_core.c:471-479)
+        dci = pick(1) - pick(3)
+        dcq = pick(2) - pick(0)
+        hs = hue_sn[:, None]
+        hc = hue_cs[:, None]
+        w0 = ((dci * hc - dcq * hs) >> 4) * saturation[:, None]
+        w1 = ((dcq * hc + dci * hs) >> 4) * saturation[:, None]
+        waveI = torch.stack([w0, w1, -w0, -w1], dim=2)
+        waveQ = torch.roll(waveI, -3, dims=-1)             # crt_core.c:541-542
+    else:  # 5-sample variant (crt_core.c:480-509)
+        off180, off90 = CC // 2, CC // 4
+        dci = pick(off90) - cdiv(pick(off90 + off180)
+                                 + pick(off90 + off180 + 1), 2)
+        dcq = pick(off180) - pick(0)
+        # wave tables rotated by the hue
+        ang = (crem(hue, 360)[:, None]
+               + torch.arange(CC, dtype=torch.int32, device=dev) * (360 // CC))
+        snI, csI = sincos14(cdiv(ang * 8192, 180))
+        snQ, csQ = sincos14(cdiv((ang + 90) * 8192, 180))
+        sat = saturation[:, None, None]
+        dci, dcq = dci[..., None], dcq[..., None]
+        waveI = ((dci * csI[:, None] + dcq * snI[:, None]) >> 15) * sat
+        waveQ = ((dci * csQ[:, None] + dcq * snQ[:, None]) >> 15) * sat
+    return (hsync_f, ccf_f, (xpos_l, beg_l, end_l, active_l, waveI, waveQ),
+            rolled4)
 
 
 # ---------------------------------------------------------------------------
@@ -323,16 +349,15 @@ def demodulate_core(
     """One decode pass.  Returns (rgb uint8 (B, outh, outw, 3), new state
     dict with keys hsync/vsync/ccf/rn/randstate; randstate comes back as
     given where the preset draws no VHS noise).  eq_mode "threeband" or
-    "conv4".."conv7" (USE_CONVOLUTION); do_bloom (CRT_DO_BLOOM);
-    do_vsync/do_hsync=False (CRT_DO_VSYNC/CRT_DO_HSYNC=0)."""
-    if cfg.cc_samples != 4:
-        raise NotImplementedError(
-            f"{cfg.name}: the port decodes 4-sample chroma systems only "
-            "(ROADMAP Queue 1, M7)")
+    "conv4".."conv7" (USE_CONVOLUTION, 4-sample chroma only); do_bloom
+    (CRT_DO_BLOOM); do_vsync/do_hsync=False (CRT_DO_VSYNC/CRT_DO_HSYNC=0)."""
     if eq_mode == "threeband":
         coefs = _eq_coefs(cfg)
     elif (eq_mode.startswith("conv") and eq_mode[4:].isdigit()
           and int(eq_mode[4:]) in filters._CONV_EQ_KERNELS):
+        if cfg.cc_samples != 4:  # crt_core.c:90
+            raise ValueError(f"{cfg.name}: the convolution EQ needs "
+                             "4-sample chroma")
         coefs = ("conv", int(eq_mode[4:]))
     else:
         raise ValueError(f"eq_mode must be 'threeband' or 'conv4'..'conv7', "
@@ -367,12 +392,11 @@ def demodulate_core(
 
     hsync_new, ccf_new, outs, rolled4 = _line_scan(
         cfg, inp2d, _b(hsync, B, dev), ccf.to(torch.int32), vsync_new,
-        hue_sn, hue_cs, saturation, outh, v_fac, field_px, do_hsync=do_hsync)
-    xpos_l, beg_l, end_l, active_l, wave_l = outs
+        _b(mon.hue, B, dev), hue_sn, hue_cs, saturation, outh, v_fac,
+        field_px, do_hsync=do_hsync)
+    xpos_l, beg_l, end_l, active_l, wvI_l, wvQ_l = outs
 
-    # Q wave is the I table rotated by 3 (crt_core.c:541-542); line l reads
-    # field rows l+3 and l+4 (ynudge=+3), i.e. rolled4 from row 3
-    wvI_l, wvQ_l = wave_l, torch.roll(wave_l, -3, dims=-1)
+    # line l reads field rows l+3 and l+4 (ynudge=+3), i.e. rolled4 from row 3
     shifts, valid, bloom = xpos_l, None, {}
     if do_bloom:
         dx_l, lidx_l, valid = _bloom_lines(cfg, rolled4[:, 3:], xpos_l,

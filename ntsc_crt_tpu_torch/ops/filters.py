@@ -9,8 +9,11 @@ Counterpart of ``ntsc_crt_tpu/ops/filters.py``:
   short FIR of the reference's USE_CONVOLUTION build (crt_core.c:96-147).
 
 Both round or truncate on every sample, so the recurrences are serial along
-x.  These plain versions march x in a Python loop, vectorised over every
-row and channel; the CUDA kernels (ops/kernels/) fuse them per row.
+x.  ``iir_lowpass`` and ``eq_threeband`` flatten the lead dims to rows, as
+the JAX ops do, and hand them to kernels K7 and K8 (ops/kernels/
+rowfilters.py): a CUDA tensor launches the kernel, a CPU tensor marches x in
+a Python loop, vectorised over every row.  The HIPASS form of the IIR and
+the convolution EQ stay plain torch on every device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ import torch
 
 from ntsc_crt_tpu_torch.ops.fixedpoint import (
     EXP_ONE,
-    EXP_P,
     EXP_PI,
     T14_PI,
     host_expx,
@@ -29,9 +31,8 @@ from ntsc_crt_tpu_torch.ops.fixedpoint import (
     host_tdiv,
     i32,
 )
-
-EQ_P = 16  # crt_core.c:155
-EQ_R = 1 << (EQ_P - 1)
+from ntsc_crt_tpu_torch.ops.kernels import rowfilters
+from ntsc_crt_tpu_torch.ops.kernels.rowfilters import EQ_P
 
 
 class EQCoefs(NamedTuple):
@@ -58,44 +59,34 @@ def init_iir(freq: int, limit: int) -> int:
     return EXP_ONE - host_expx(-host_tdiv(EXP_PI << 9, rate))
 
 
-def iir_lowpass(s: torch.Tensor, c) -> torch.Tensor:
+def _rows(s: torch.Tensor, coefs):
+    """s int32 [..., n] as (R, n) rows and each coefficient broadcast to the
+    lead dims as (R,) — JAX filters.py:131-133, 171-174."""
+    s = i32(s)
+    lead = s.shape[:-1]
+    rows = s.reshape(-1, s.shape[-1]).contiguous()
+    return rows, [torch.broadcast_to(i32(c, device=s.device), lead)
+                  .reshape(-1).contiguous() for c in coefs]
+
+
+def iir_lowpass(s: torch.Tensor, c, hipass: bool = False) -> torch.Tensor:
     """h += ((s - h) * c) >> 11 marched along the LAST axis, h reset to 0
     (crt_ntsc.c:117-126).  s: int32 [..., n]; c broadcastable to s[..., 0].
-    Returns the filtered sequence."""
-    xs = i32(s).movedim(-1, 0)
-    c = i32(c, device=xs.device)
-    h = torch.zeros_like(xs[0])
-    out = torch.empty_like(xs)
-    for x in range(xs.shape[0]):
-        h = h + (((xs[x] - h) * c) >> EXP_P)
-        out[x] = h
-    return out.movedim(0, -1)
+    Returns the filtered sequence; hipass=True returns s - h instead, the
+    reference's HIPASS form (crt_ntsc.c:114-126)."""
+    if hipass:
+        s = i32(s)
+        return s - rowfilters.iir_lowpass_rows_plain(s, c)
+    rows, (crow,) = _rows(s, (c,))
+    return rowfilters.iir_lowpass_rows(rows, crow).reshape(s.shape)
 
 
 def eq_threeband(s: torch.Tensor, lf, hf, g_lo, g_mid, g_hi) -> torch.Tensor:
     """Exact eqf() marched along the LAST axis with the state reset per line
     (crt_core.c:198-233).  s: int32 [..., n]; coefficients broadcastable to
     s[..., 0], so Y/I/Q can ride a channel axis in one march."""
-    xs = i32(s).movedim(-1, 0)
-    dev = xs.device
-    lf, hf, g0, g1, g2 = (i32(v, device=dev) for v in (lf, hf, g_lo, g_mid,
-                                                       g_hi))
-    zero = torch.zeros_like(xs[0])
-    fL = [zero] * 4
-    fH = [zero] * 4
-    h = [zero] * 3
-    out = torch.empty_like(xs)
-    for x in range(xs.shape[0]):
-        sx = xs[x]
-        prevL, prevH = sx, sx
-        for k in range(4):
-            fL[k] = fL[k] + ((lf * (prevL - fL[k]) + EQ_R) >> EQ_P)
-            fH[k] = fH[k] + ((hf * (prevH - fH[k]) + EQ_R) >> EQ_P)
-            prevL, prevH = fL[k], fH[k]
-        out[x] = (((fL[3] * g0) >> EQ_P) + (((fH[3] - fL[3]) * g1) >> EQ_P)
-                  + (((h[2] - fH[3]) * g2) >> EQ_P))
-        h = [sx, h[0], h[1]]
-    return out.movedim(0, -1)
+    rows, cs = _rows(s, (lf, hf, g_lo, g_mid, g_hi))
+    return rowfilters.eq_threeband_rows(rows, *cs).reshape(s.shape)
 
 
 # taps -> (weights, shift) of the convolution EQ builds (crt_core.c:130-145);

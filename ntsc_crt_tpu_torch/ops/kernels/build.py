@@ -38,6 +38,10 @@ _SIGNATURES = {
     "ntsc_place_rows_uniform": "pppp" + "i" * 7 + "p",
     "ntsc_ccf_ema": "pppppp" + "i" * 5 + "p",
     "ntsc_vhs_region_b_entries": "pp" + "i" * 3 + "p",
+    "ntsc_iir_lowpass_rows": "ppp" + "ii" + "p",
+    "ntsc_eq_threeband_rows": "p" * 7 + "ii" + "p",
+    "ntsc_scanconv_rows": "p" * 5 + "iii" + "p",
+    "ntsc_probe": "pp" + "i" * 4 + "p",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 

@@ -34,6 +34,7 @@ import torch
 
 from ntsc_crt_tpu_torch.ops import fastpath, filters
 from ntsc_crt_tpu_torch.ops.fixedpoint import cdiv
+from ntsc_crt_tpu_torch.ops.kernels import rowfilters
 
 # kernel launches since the last reset (read by chip_smoke.py), one count
 # per mode: each launch adds to exactly one of the three decode counts
@@ -144,7 +145,7 @@ def decode_rows_plain(rows, shifts, waveI, waveQ, bright, contrast, *,
     else:
         per_chan = [torch.tensor([c[k] for c in coefs], dtype=torch.int32,
                                  device=rows.device) for k in range(5)]
-        eqd = filters.eq_threeband(stacked, *per_chan)
+        eqd = rowfilters.eq_threeband_rows_plain(stacked, *per_chan)
     oy, oi, oq = eqd[:, :, 0] << 4, eqd[:, :, 1] >> 3, eqd[:, :, 2] >> 3
     if bloom:
         p = torch.arange(outw, dtype=torch.int32, device=rows.device)

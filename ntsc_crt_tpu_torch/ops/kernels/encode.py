@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from ntsc_crt_tpu_torch.ops import fastpath, filters
+from ntsc_crt_tpu_torch.ops import fastpath
+from ntsc_crt_tpu_torch.ops.kernels import rowfilters
 
 # kernel launches since the last reset (read by chip_smoke.py)
 LAUNCHES = 0
@@ -34,9 +35,10 @@ def encode_rows(img: torch.Tensor, sy: torch.Tensor, modI: torch.Tensor,
                 modQ: torch.Tensor, gain: torch.Tensor, base: torch.Tensor,
                 *, coefs, xo_mod: int, destw: int) -> torch.Tensor:
     """img uint8 (B, h, w, 3); sy int32 (B, desth) source row of each output
-    row; modI/modQ int32 (B, cc) carrier tables with the phase sign folded
-    in (cc = 4 or 5); gain/base int32 (B,); coefs (cY, cI, cQ) ints, or None
-    without bandlimiting; xo_mod = xo % cc.  Returns int8 (B, desth, destw).
+    row; modI/modQ int32 (B, desth, cc) carrier tables of each row with the
+    phase sign folded in (cc = 4 or 5); gain/base int32 (B,); coefs
+    (cY, cI, cQ) ints, or None without bandlimiting; xo_mod = xo % cc.
+    Returns int8 (B, desth, destw).
     """
     if img.device.type == "cpu":
         return encode_rows_plain(img, sy, modI, modQ, gain, base,
@@ -46,11 +48,11 @@ def encode_rows(img: torch.Tensor, sy: torch.Tensor, modI: torch.Tensor,
     global LAUNCHES
     dev = img.device
     B, h, w = img.shape[0], img.shape[1], img.shape[2]
-    desth, cc = sy.shape[1], modI.shape[1]
+    desth, cc = sy.shape[1], modI.shape[-1]
     build.check("img", img, torch.uint8, (B, h, w, 3), dev)
     build.check("sy", sy, torch.int32, (B, desth), dev)
-    build.check("modI", modI, torch.int32, (B, cc), dev)
-    build.check("modQ", modQ, torch.int32, (B, cc), dev)
+    build.check("modI", modI, torch.int32, (B, desth, cc), dev)
+    build.check("modQ", modQ, torch.int32, (B, desth, cc), dev)
     build.check("gain", gain, torch.int32, (B,), dev)
     build.check("base", base, torch.int32, (B,), dev)
     if cc not in (4, 5):
@@ -77,11 +79,11 @@ def encode_rows_plain(img, sy, modI, modQ, gain, base, *, coefs,
     pix = img[bi, sy.long()[:, :, None], sx].to(torch.int32)
     fy, fi, fq = rgb_to_yiq(pix)                          # (B, desth, destw)
     if coefs is not None:
-        yiq = filters.iir_lowpass(torch.stack([fy, fi, fq], dim=-2),
-                                  torch.tensor(coefs, dtype=torch.int32,
-                                               device=dev))
+        yiq = rowfilters.iir_lowpass_rows_plain(
+            torch.stack([fy, fi, fq], dim=-2),
+            torch.tensor(coefs, dtype=torch.int32, device=dev))
         fy, fi, fq = yiq.unbind(-2)
-    fi = (fi * fastpath.tile_period(modI, destw, xo_mod)[:, None]) >> 4
-    fq = (fq * fastpath.tile_period(modQ, destw, xo_mod)[:, None]) >> 4
+    fi = (fi * fastpath.tile_period(modI, destw, xo_mod)) >> 4
+    fq = (fq * fastpath.tile_period(modQ, destw, xo_mod)) >> 4
     ire = base[:, None, None] + (((fy + fi + fq) * gain[:, None, None]) >> 10)
     return ire.clamp(0, 110).to(torch.int8)

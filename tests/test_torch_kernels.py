@@ -1,6 +1,8 @@
 """K1-K5 of the port: plain versions against the JAX kernels, and CUDA
 kernels against the plain versions (K2's conv and bloom modes,
-bloom_line_width and K6: tests/test_torch_variants.py).
+bloom_line_width and K6: tests/test_torch_variants.py); K7-K10 and the
+unfused decode chain on the card (their plain versions against JAX:
+tests/test_torch_rowops.py).
 
 On the CPU each plain version (the path a CPU tensor takes) is held against
 the Pallas kernel it replaces, run in interpret mode as the JAX package's own
@@ -18,12 +20,15 @@ import numpy as np
 import pytest
 import torch
 
-from ntsc_crt_tpu.models.systems import NTSC
 from ntsc_crt_tpu_torch.models import demodulate as dem
+from ntsc_crt_tpu_torch.models import systems
 from ntsc_crt_tpu_torch.ops import filters
-from ntsc_crt_tpu_torch.ops.kernels import ccf, decode, encode, hsync, vhs
+from ntsc_crt_tpu_torch.ops.kernels import (ccf, decode, encode, hsync,
+                                            probe, rowfilters, scanconv, vhs)
 
 torch.set_num_threads(1)  # the tier runs several workers on few cores
+
+NTSC = systems.NTSC
 
 IIR = tuple(filters.init_iir(NTSC.l_freq, f)
             for f in (NTSC.y_freq, NTSC.i_freq, NTSC.q_freq))
@@ -43,7 +48,7 @@ def to_torch(d, device="cpu"):
 
 def same(got, want):
     got = got.cpu().numpy() if torch.is_tensor(got) else np.asarray(got)
-    want = np.asarray(want)
+    want = want.cpu().numpy() if torch.is_tensor(want) else np.asarray(want)
     assert got.shape == want.shape, (got.shape, want.shape)
     assert np.array_equal(got, want), f"{int((got != want).sum())} differ"
 
@@ -51,14 +56,17 @@ def same(got, want):
 # --- K1 encode_rows ---------------------------------------------------------
 
 
-def k1_inputs(seed, B, h, w, desth, cc):
+def k1_inputs(seed, B, h, w, desth, cc, per_row=False):
+    """Random K1 arguments: carrier tables (B, desth, cc), one a picture
+    row, or with per_row=False one a frame repeated over its rows."""
     rng = np.random.default_rng(seed)
     sy = np.sort(rng.integers(0, h, (B, desth)), axis=1)
+    tab = lambda: np.broadcast_to(  # noqa: E731
+        rng.integers(-32, 33, (B, desth if per_row else 1, cc)),
+        (B, desth, cc)).astype(np.int32, order="C")
     return dict(
         img=rng.integers(0, 256, (B, h, w, 3)).astype(np.uint8),
-        sy=sy.astype(np.int32),
-        modI=rng.integers(-32, 33, (B, cc)).astype(np.int32),
-        modQ=rng.integers(-32, 33, (B, cc)).astype(np.int32),
+        sy=sy.astype(np.int32), modI=tab(), modQ=tab(),
         gain=rng.integers(50, 150, B).astype(np.int32),
         base=rng.integers(-20, 30, B).astype(np.int32))
 
@@ -77,8 +85,10 @@ def k1_jax(x, destw, xo_mod, col_map):
     planes = [jnp.asarray(rows[..., c].reshape(B * desth, -1))
               for c in range(3)]
     per_row = lambda v: jnp.asarray(np.repeat(v, desth, axis=0))
+    tables = [jnp.asarray(x[k].reshape(B * desth, -1))
+              for k in ("modI", "modQ")]
     out = ef.encode_fused_rows(
-        *planes, per_row(x["modI"]), per_row(x["modQ"]), per_row(x["gain"]),
+        *planes, *tables, per_row(x["gain"]),
         per_row(x["base"]), coefs=IIR, xo_mod=xo_mod, rgb=True,
         interpret=True,
         col_map=tuple(int(v) for v in cmap) if col_map else None)
@@ -98,9 +108,13 @@ def test_k1_plain_matches_jax_kernel(cc, w, destw, col_map):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cc", [4, 5])
-def test_k1_kernel_matches_plain(cuda, cc):
-    x = k1_inputs(cc, B=3, h=240, w=320, desth=236, cc=cc)
-    kw = dict(coefs=IIR, xo_mod=2, destw=NTSC.av_len)
+@pytest.mark.parametrize("per_row", [False, True])
+def test_k1_kernel_matches_plain(cuda, cc, per_row):
+    """One carrier table a frame (NTSC) or one a row (the 2D-table
+    encoders, PV1K's 5-sample lines at their full 1487-sample width)."""
+    x = k1_inputs(cc, B=3, h=240, w=320, desth=236, cc=cc, per_row=per_row)
+    kw = dict(coefs=IIR, xo_mod=2,
+              destw=systems.PV1K.av_len if cc == 5 else NTSC.av_len)
     want = encode.encode_rows(**to_torch(x), **kw)
     n = encode.LAUNCHES
     same(encode.encode_rows(**to_torch(x, cuda), **kw), want)
@@ -292,6 +306,73 @@ def test_k5_kernel_matches_plain(cuda, B):
     assert vhs.LAUNCHES == n + 1
 
 
+# --- K7 / K8 row filters, K9 scan conversion, the unfused chain, K10 ----------
+
+
+def row_inputs(seed, R, T, lim):
+    rng = np.random.default_rng(seed)
+    sets = np.array([tuple(c) for c in dem._eq_coefs(NTSC)], np.int32)
+    return (rng.integers(-lim, lim, (R, T)).astype(np.int32),
+            rng.integers(0, 2048, R).astype(np.int32),
+            sets[rng.integers(0, 3, R)].T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,T,lim", [(3 * 236, 753, 300), (1000, 37, 1 << 30),
+                                     (31, 5, 1 << 20), (129, 1487, 300)])
+def test_k7_k8_kernels_match_plain(cuda, R, T, lim):
+    """Ragged row and sample counts (a partial warp, a partial tile), the
+    encode rows of NTSC and PV1K, and full-range inputs that wrap."""
+    x, c, cs = row_inputs(R + T, R, T, lim)
+    t = lambda v, d="cpu": torch.as_tensor(v, device=d)  # noqa: E731
+    n7, n8 = rowfilters.IIR_LAUNCHES, rowfilters.EQ_LAUNCHES
+    same(rowfilters.iir_lowpass_rows(t(x, cuda), t(c, cuda)),
+         rowfilters.iir_lowpass_rows(t(x), t(c)))
+    same(rowfilters.eq_threeband_rows(t(x, cuda), *(t(v, cuda) for v in cs)),
+         rowfilters.eq_threeband_rows(t(x), *map(t, cs)))
+    assert (rowfilters.IIR_LAUNCHES, rowfilters.EQ_LAUNCHES) == (n7 + 1,
+                                                                 n8 + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,T,outw,lim", [(720, 753, 640, 1 << 20),
+                                          (5, 1487, 640, 1 << 27),
+                                          (3, 1, 7, 1 << 20)])
+def test_k9_kernel_matches_plain(cuda, R, T, outw, lim):
+    rng = np.random.default_rng(T)
+    x = [rng.integers(-lim, lim, (R, T)).astype(np.int32) for _ in range(3)]
+    x.append(rng.integers(0, 400, R).astype(np.int32))
+    want = scanconv.scanconv_rows(*map(torch.as_tensor, x), outw=outw)
+    n = scanconv.LAUNCHES
+    same(scanconv.scanconv_rows(*(torch.as_tensor(v, device=cuda) for v in x),
+                                outw=outw), want)
+    assert scanconv.LAUNCHES == n + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cc", [4, 5])
+def test_unfused_chain_kernels_equal_k2_kernel(cuda, cc):
+    """K8 then K9 against K2, kernel against kernel, at NTSC's width."""
+    x = to_torch(k2_inputs(cc + 10, B=2, L=NTSC.lines, H=NTSC.hres, cc=cc,
+                           row0=3), cuda)
+    kw = dict(row0=3, coefs=dem._eq_coefs(NTSC), av_len=NTSC.av_len,
+              outw=640)
+    n = (rowfilters.EQ_LAUNCHES, scanconv.LAUNCHES)
+    same(scanconv.decode_rows_unfused(**x, **kw), decode.decode_rows(**x, **kw))
+    assert (rowfilters.EQ_LAUNCHES, scanconv.LAUNCHES) == (n[0] + 1, n[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", probe.PATTERNS)
+@pytest.mark.parametrize("iters", [0, 100])
+def test_k10_kernel_matches_plain(cuda, pattern, iters):
+    x = probe.probe_input(3, "cpu")
+    want = probe.probe(x, pattern, iters=iters)
+    n = probe.LAUNCHES
+    same(probe.probe(x.to(cuda), pattern, iters=iters), want)
+    assert probe.LAUNCHES == n + 1
+
+
 # --- dispatch -----------------------------------------------------------------
 
 
@@ -304,7 +385,9 @@ def k2_bloom_inputs():
 @pytest.mark.parametrize("name", ["encode_rows", "decode_rows", "hsync_chase",
                                   "ccf_ema", "vhs_region_b_entries",
                                   "decode_rows_conv", "decode_rows_bloom",
-                                  "bloom_line_width", "place_rows_uniform"])
+                                  "bloom_line_width", "place_rows_uniform",
+                                  "iir_lowpass_rows", "eq_threeband_rows",
+                                  "scanconv_rows", "probe"])
 def test_non_cpu_tensors_never_take_the_plain_version(name):
     """Only a CPU tensor takes the plain version.  Any other tensor goes to
     the kernel path, which refuses a tensor that is not on a CUDA device
@@ -327,6 +410,13 @@ def test_non_cpu_tensors_never_take_the_plain_version(name):
         "bloom_line_width": lambda x: decode.bloom_line_width(**x),
         "place_rows_uniform": lambda x: place.place_rows_uniform(
             **x, blend=True, scanlines=1, ratio=2, fp=1),
+        "iir_lowpass_rows": lambda x: rowfilters.iir_lowpass_rows(
+            x["x"], x["c"]),
+        "eq_threeband_rows": lambda x: rowfilters.eq_threeband_rows(
+            x["x"], *x["cs"]),
+        "scanconv_rows": lambda x: scanconv.scanconv_rows(
+            x["x"], x["x"], x["x"], x["c"], outw=8),
+        "probe": lambda x: probe.probe(x["x"], "eq1", iters=2),
     }[name]
     x = {"encode_rows": lambda: k1_inputs(0, B=1, h=9, w=20, desth=8, cc=4),
          "decode_rows": lambda: k2_inputs(0, B=1, L=4, H=160, cc=4),
@@ -341,7 +431,12 @@ def test_non_cpu_tensors_never_take_the_plain_version(name):
          "place_rows_uniform": lambda: dict(
              rgb=np.zeros((2, 4, 8, 3), np.uint8),
              old=np.zeros((2, 8, 8, 3), np.uint8),
-             field_px=np.ones(2, np.int32))}[name]()
+             field_px=np.ones(2, np.int32)),
+         "iir_lowpass_rows": lambda: dict(zip("xc", row_inputs(0, 4, 8, 9))),
+         "eq_threeband_rows": lambda: dict(zip(("x", "c", "cs"),
+                                               row_inputs(0, 4, 8, 9))),
+         "scanconv_rows": lambda: dict(zip("xc", row_inputs(0, 4, 8, 9))),
+         "probe": lambda: dict(x=probe.probe_input(1, "cpu"))}[name]()
     counter = {"encode_rows": (encode, "LAUNCHES"),
                "decode_rows": (decode, "LAUNCHES"),
                "hsync_chase": (hsync, "LAUNCHES"),
@@ -350,8 +445,14 @@ def test_non_cpu_tensors_never_take_the_plain_version(name):
                "decode_rows_conv": (decode, "CONV_LAUNCHES"),
                "decode_rows_bloom": (decode, "BLOOM_LAUNCHES"),
                "bloom_line_width": (decode, "LINE_WIDTH_LAUNCHES"),
-               "place_rows_uniform": (place, "LAUNCHES")}[name]
+               "place_rows_uniform": (place, "LAUNCHES"),
+               "iir_lowpass_rows": (rowfilters, "IIR_LAUNCHES"),
+               "eq_threeband_rows": (rowfilters, "EQ_LAUNCHES"),
+               "scanconv_rows": (scanconv, "LAUNCHES"),
+               "probe": (probe, "LAUNCHES")}[name]
     n = getattr(*counter)
+    meta = lambda v: torch.as_tensor(v).to("meta")  # noqa: E731
     with pytest.raises(ValueError, match="expected a tensor on"):
-        call({k: torch.as_tensor(v).to("meta") for k, v in x.items()})
+        call({k: [meta(c) for c in v] if k == "cs" else meta(v)
+              for k, v in x.items()})
     assert getattr(*counter) == n

@@ -17,7 +17,7 @@ import jax.numpy as jnp
 from helpers import run_demodulate, run_modulate, run_step
 from ntsc_crt_tpu.models import pipeline as jpipe
 from ntsc_crt_tpu.models.demodulate import MonitorParams as JMon
-from ntsc_crt_tpu.models.systems import NTSC, PV1K
+from ntsc_crt_tpu.models.systems import NTSC
 from ntsc_crt_tpu_torch.models import pipeline
 from ntsc_crt_tpu_torch.models.demodulate import MonitorParams
 from ntsc_crt_tpu_torch.utils import convert
@@ -192,7 +192,8 @@ def test_port_imports_no_jax():
     `ntsc_crt_tpu.*`) is loaded by importing the port."""
     code = ("import sys, ntsc_crt_tpu_torch; "
             "from ntsc_crt_tpu_torch.utils import convert; "
-            "from ntsc_crt_tpu_torch.ops.kernels import ccf, place, vhs; "
+            "from ntsc_crt_tpu_torch.ops.kernels import ccf, place, vhs, "
+            "probe, rowfilters, scanconv; "
             "assert 'jax' not in sys.modules, sorted(sys.modules); "
             "jp = [m for m in sys.modules if m == 'ntsc_crt_tpu' "
             "or m.startswith('ntsc_crt_tpu.')]; "
@@ -203,9 +204,16 @@ def test_port_imports_no_jax():
 
 
 def test_unported_presets_raise():
-    st = pipeline.crt_init(PV1K, 64, 48, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.modulate(PV1K, st, torch.zeros((48, 64, 3),
-                                                dtype=torch.uint8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.demodulate(PV1K, st)
+    """Every preset of the reference runs now; a system outside its encoder
+    families or its 4- and 5-sample chroma raises instead of guessing."""
+    import dataclasses
+    from ntsc_crt_tpu_torch.models import systems
+    odd = dataclasses.replace(systems.NTSC, name="ODD", cc_samples=5)
+    st = pipeline.crt_init(odd, 64, 48, device="cpu")
+    with pytest.raises(ValueError, match="NTSC-family"):
+        pipeline.modulate(odd, st, torch.zeros((48, 64, 3),
+                                               dtype=torch.uint8))
+    six = dataclasses.replace(systems.NTSC, name="SIX", cc_samples=6)
+    with pytest.raises(ValueError, match="4 or 5"):
+        pipeline.demodulate(six, pipeline.crt_init(six, 64, 48,
+                                                   device="cpu"))
