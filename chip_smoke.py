@@ -27,8 +27,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    step; K7 on the Y/I/Q rows of the NTSC and PV1K K1 inputs; K8 on the
    NTSC K2 inputs' Y/I/Q rows, K9 on K8's output, and the unfused chain
    against K2; K10's three patterns at the TPU probe's size.  Exact
-   equality; each side's time from CUDA events; each kernel's bound from
-   these inputs (see BOUNDS below).
+   equality; each side's time from CUDA events (the kernel's also with its
+   calls queued behind a spin kernel, see cuda_ms); each kernel's bound
+   from these inputs (see BOUNDS below).  Then K1 and K2 at small ragged shapes
+   (ragged_cases: partial warps and tiles, shifts before 0 and past H,
+   every K2 mode, bloom rows that restart or meet the forced-zero sample).
 5. goldens — all 11 tags of tests/fixtures/device_parity_goldens.npz (NTSC,
    NTSC_b16, NTSCVHS, NTSCVHS_b16, NTSC_bloom, NTSC_conv7, PV1K, PV1K_b16,
    NES, SNES, NESRGB) replayed through step / step_batch on the card,
@@ -43,7 +46,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    run on no pipeline path).  Each path's last step must equal the same
    step run on the CPU's plain path.  Then, for each path and batch, one
    step timed stage by stage (host clock around synchronized stages) and
-   one step under torch.profiler (device launches and busy time).
+   one step under torch.profiler (device launches and busy time, and each
+   of the port's kernels' device time and launches in that step).
 7. variants — one batch-2 step each of fixed sync (do_vsync and do_hsync
    False: K3 must not launch), NTSC_RAINBOW, SNES, TEMPLATE and NESRGB,
    held to the CPU's plain path.
@@ -56,11 +60,11 @@ the data, what this data needs) over the card's int32 source-op rate: the
 probe's `peak` rate measured in phase 3 of this run at the full-card size (a
 source op is often less than one SASS instruction, so this is above the
 issue ceiling of 132 SMs x 128 lanes x clock; the data sheet gives no int32
-rate).  For the serial kernels (K3, K4, K5, bloom_line_width, K7, K8, K10)
-the dependent chain of the longest entry is also priced (`chain`): the
-cycles per dependent source op that the probe measured in this run (eq1,
-one warp a scheduler), 260 cycles per dependent load that hits L2
-(assumed), at the SM clock read during the probe.
+rate).  For the serial kernels (K1, K2, K3, K4, K5, bloom_line_width, K7,
+K8, K10) the dependent chain of the longest entry is also priced
+(`chain`): the cycles per dependent source op that the probe measured in
+this run (eq1, one warp a scheduler), 260 cycles per dependent load that
+hits L2 (assumed), at the SM clock read during the probe.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Every number is measured in this run.
@@ -137,12 +141,25 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` calls, after one warm-up."""
+def cuda_ms(fn, reps: int, spin: bool = False) -> float:
+    """Mean time of fn() over `reps` calls between two CUDA events, after
+    one warm-up.  spin=False times the calls as the host issues them (the
+    JSON line's `ms`): a kernel shorter than one call's host time reads the
+    host's rate of launching it.  spin=True queues the calls behind a spin
+    kernel that outlasts their host time, so the device runs them back to
+    back and the time is the card's (a call that waits on the device still
+    counts the host's time after the wait)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    # the spin: the warm-up's time with its device work for every call,
+    # plus 1 ms, at most 50 ms (beyond that the host's share is small)
+    spin_s = min(reps * (time.perf_counter() - t0) + 1e-3, 0.05)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(int(spin_s * (MEASURED["sm_hz"] or 2e9)))
     start.record()
     for _ in range(reps):
         fn()
@@ -182,9 +199,12 @@ def dep() -> float:
 
 def work_encode(a, k, out):
     """Per sample: resample index 2, RGB->YIQ 18, IIR 12, carrier 4, IRE 5,
-    clamp 2 (csrc/encode.cu)."""
-    per = 43 if k["coefs"] is not None else 31
-    return nbytes(*a, out), out.numel() * per, None
+    clamp 2 (csrc/encode.cu).  Chain: a row's IIR, 4 dependent ops a sample
+    (as K7's); without bandlimiting, one sample's depth (YIQ 3, carrier 2,
+    IRE 4, clamp 2)."""
+    band = k["coefs"] is not None
+    chain = (4 * out.shape[2] if band else 11) * dep()
+    return nbytes(*a, out), out.numel() * (43 if band else 31), chain
 
 
 def eq_ops(coefs) -> int:
@@ -198,18 +218,27 @@ def work_decode(a, k, out):
     pixel: lerp 17, YIQ->RGB, contrast and clamp 27 (csrc/decode.cu).  In
     bloom mode a row marches only to the last pixel's right source (this
     data's dx), picks its wave phase (6 a sample) and tracks its sources
-    (10 a pixel)."""
+    (10 a pixel).  Chain: a row's 3-band EQ, 5 dependent ops a sample plus
+    the 25 of the first output (as K8's), over av samples or, in bloom
+    mode, the longest row's march; the FIR has no recurrence, so its chain
+    is one sample's depth: demodulation 2, the FIR taps + 1, the output
+    shift 1, the lerp 3, YIQ->RGB 3, contrast and clamp 5."""
     from ntsc_crt_tpu_torch.ops.kernels import decode
     B, L = a[1].shape
     outw, av = k["outw"], k["av_len"]
     per_sample = 8 + eq_ops(k["coefs"])
+    conv = k["coefs"][0] == "conv"
+    chain = lambda n: (k["coefs"][1] + 15 if conv  # noqa: E731
+                       else 5 * n + 25) * dep()
     if k.get("bloom_dx") is None:
-        return (nbytes(*a, out), B * L * (av * per_sample + outw * 44), None)
+        return (nbytes(*a, out), B * L * (av * per_sample + outw * 44),
+                chain(av))
     n_eq = decode.eq_len(av, a[2].shape[2])
     last = ((k["bloom_dx"].long() * (outw - 1)) >> 12).clamp(min=0)
-    samples = int(((last + 1).clamp(max=n_eq - 1) + 1).sum())
+    march = (last + 1).clamp(max=n_eq - 1) + 1
     return (nbytes(*a, out, k["bloom_dx"], k["bloom_lidx"]),
-            samples * (per_sample + 6) + B * L * outw * 54, None)
+            int(march.sum()) * (per_sample + 6) + B * L * outw * 54,
+            chain(int(march.max())))
 
 
 def work_line_width(a, k, out):
@@ -481,13 +510,15 @@ def check_kernel(name, label, B, a, k, rows):
         raise SystemExit(f"{name} {label} batch {B}: kernel differs from "
                          f"plain (max |err| {err})")
     ms = cuda_ms(lambda: kern(*a, **k), 20)
+    spin_ms = cuda_ms(lambda: kern(*a, **k), 20, spin=True)
     plain_ms = cuda_ms(lambda: kd.plain(*a, **k), 1)
     bound_ms, bound_by, chain_ms = bound(kd.work(a, k, got))
     chain = "" if chain_ms is None else f", chain {chain_ms:.4f} ms"
     print(f"kernel {name} batch {B} ({label}) shapes "
-          f"{[tuple(g.shape) for g in got_t]}: {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}){chain}, "
-          f"max |err| {err}", flush=True)
+          f"{[tuple(g.shape) for g in got_t]}: {ms:.4f} ms (behind a spin "
+          f"{spin_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}){chain}, max |err| {err}",
+          flush=True)
     rows.setdefault(name, {})[(label, B)] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by)
@@ -537,6 +568,78 @@ def phase_kernels(pipeline, systems, dev):
         check_kernel("probe", pattern, PROBE_BLOCKS, (x, pattern),
                      dict(iters=PROBE_ITERS), rows)
     return rows
+
+
+def ragged_cases(dev):
+    """K1 and K2 inputs at shapes the paths never give, small: 111 rows (a
+    warp's last 15 lanes idle), widths that are not multiples of a tile
+    (K1's 64 or 60 samples, K2's 32 pixels) or of 4 bytes, an image wider
+    than the line, shifts before 0 and past H, K2's conv4-conv7, and bloom
+    rows whose source moves back (dx <= 0, or p*dx wrapping), clamps at
+    n_eq - 1 or meets the forced-zero sample.  Yields (kernel, label, args,
+    kwargs)."""
+    from ntsc_crt_tpu_torch.models import demodulate as dem
+    from ntsc_crt_tpu_torch.models import systems
+    from ntsc_crt_tpu_torch.ops import filters
+    from ntsc_crt_tpu_torch.ops.kernels import decode
+    rng = np.random.default_rng(5)
+    t = lambda v: torch.as_tensor(np.ascontiguousarray(v), device=dev)  # noqa
+    i32 = lambda lo, hi, n: rng.integers(lo, hi, n).astype(np.int32)  # noqa
+    ntsc = systems.NTSC
+    iir = tuple(filters.init_iir(ntsc.l_freq, f)
+                for f in (ntsc.y_freq, ntsc.i_freq, ntsc.q_freq))
+    B, h, desth = 3, 29, 37
+    for cc, w, destw, coefs in ((4, 20, 37, iir), (5, 1000, 753, iir),
+                                (4, 320, 753, None), (4, 640, 640, iir)):
+        a = (t(rng.integers(0, 256, (B, h, w, 3), dtype=np.uint8)),
+             t(i32(0, h, (B, desth))), t(i32(-32, 33, (B, desth, cc))),
+             t(i32(-32, 33, (B, desth, cc))), t(i32(50, 150, B)),
+             t(i32(-20, 30, B)))
+        yield ("encode_rows", f"cc {cc}, w {w}, destw {destw}"
+               + ("" if coefs else ", no bandlimit"), a,
+               dict(coefs=coefs, xo_mod=3 % cc, destw=destw))
+    L, H, av, row0 = 37, 200, 150, 2
+    three = dem._eq_coefs(ntsc)
+    modes = ([("decode_rows", 4, three, 641), ("decode_rows", 5, three, 37),
+              ("decode_rows", 4, three, 640)]
+             + [("decode_rows_conv", 4, ("conv", taps), outw)
+                for taps, outw in ((4, 641), (5, 37), (6, 640), (7, 641))]
+             + [("decode_rows_bloom", 4, three, 641),
+                ("decode_rows_bloom", 5, three, 37),
+                ("decode_rows_bloom", 4, ("conv", 7), 640)])
+    for name, cc, coefs, outw in modes:
+        a = (t(rng.integers(-127, 128, (B, row0 + L + 1, H), dtype=np.int8)),
+             t(i32(-40, 2 * H - 20, (B, L))),
+             t(i32(-60000, 60000, (B, L, cc))),
+             t(i32(-60000, 60000, (B, L, cc))), t(i32(-20, 20, (B, L))),
+             t(i32(150, 200, (B, L))))
+        k = dict(row0=row0, coefs=coefs, av_len=av, outw=outw)
+        label = f"cc {cc}, outw {outw}" + (
+            f", conv{coefs[1]}" if coefs[0] == "conv" else "")
+        if name == "decode_rows_bloom":
+            k.update({n: t(v) for n, v in
+                      decode.bloom_steps(rng, B, L, av, outw, cc).items()})
+        yield name, label, a, k
+
+
+def phase_ragged(dev):
+    """K1 and K2 against their plain versions on the ragged_cases inputs,
+    at 0 LSB (K2's through decode_rows_plain_any_shift: the shifts go below
+    0)."""
+    from ntsc_crt_tpu_torch.ops.kernels import decode
+    mods = kernel_modules()
+    for name, label, a, k in ragged_cases(dev):
+        kd = mods[name]
+        got = getattr(kd.mod, kd.wrapper)(*a, **k)
+        want = (kd.plain(*a, **k) if name == "encode_rows"
+                else decode.decode_rows_plain_any_shift(*a, **k))
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if got.shape != want.shape or err != 0:
+            raise SystemExit(f"{name} ragged ({label}): kernel differs from "
+                             f"plain (max |err| {err})")
+        print(f"kernel {name} ragged ({label}) shape {tuple(got.shape)}: "
+              "equals plain at 0 LSB", flush=True)
 
 
 def phase_ops(systems, dev):
@@ -717,9 +820,33 @@ def stage_times(pipeline, fn):
     return times
 
 
+# the port's CUDA functions on the pipeline paths, as the profiler names
+# them, and their kernels (K2's mode from its template arguments)
+KERNEL_FUNCS = (("encode_rows_kernel", "encode_rows"),
+                ("decode_rows_kernel", "decode_rows"),
+                ("bloom_line_width_kernel", "bloom_line_width"),
+                ("hsync_chase_kernel", "hsync_chase"),
+                ("ccf_ema_kernel", "ccf_ema"),
+                ("vhs_region_b_kernel", "vhs_region_b_entries"),
+                ("place_rows_kernel", "place_rows_uniform"))
+
+
+def kernel_of(event: str):
+    """The kernel of a device event's name, or None."""
+    for fn, name in KERNEL_FUNCS:
+        if fn in event:
+            if name == "decode_rows" and "Fir" in event:
+                return "decode_rows_conv"
+            if name == "decode_rows" and ("true" in event or "Lb1E" in event):
+                return "decode_rows_bloom"
+            return name
+    return None
+
+
 def profile_step(fn):
     """(device operations, of which kernels, device busy ms, wall ms, the
-    eight torch ops with the most host time) of one call of fn() under
+    eight torch ops with the most host time, {kernel: (device ms,
+    launches)} of the port's kernels) of one call of fn() under
     torch.profiler; counts 0 if the trace shows no device events."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -741,7 +868,14 @@ def profile_step(fn):
                  reverse=True)[:8]
     top = ", ".join(f"{a.key} {a.count}x {a.self_cpu_time_total / 1e3:.3f}"
                     for a in top)
-    return len(evs), len(kernels), busy / 1e3, wall, top
+    ours = {}
+    for e in kernels:
+        name = kernel_of(e.name)
+        if name is not None:
+            ms, n = ours.get(name, (0.0, 0))
+            ours[name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                          n + 1)
+    return len(evs), len(kernels), busy / 1e3, wall, top, ours
 
 
 def counted(label, needed, run):
@@ -807,10 +941,14 @@ def phase_path(pipeline, cfg, kw, needed, card, dev, steps1=20, stepsB=5):
         t = stage_times(pipeline, one)
         print(f"{label} stages batch {b} (ms, host clock, synchronized): "
               + ", ".join(f"{k} {v:.3f}" for k, v in t.items()), flush=True)
-        ops, kern, busy, wall, top = profile_step(one)
+        ops, kern, busy, wall, top, ours = profile_step(one)
         print(f"{label} profiled step batch {b}: {ops} device operations "
               f"({kern} kernels), device busy {busy:.3f} ms of {wall:.3f} "
               f"ms wall  [{card}]; most host time (ms): {top}", flush=True)
+        print(f"{label} profiled step batch {b}, the port's kernels (device "
+              "ms, launches): " + (", ".join(
+                  f"{k} {ms:.4f} ({n})" for k, (ms, n) in ours.items())
+                  or "none in the trace"), flush=True)
     return launches
 
 
@@ -859,8 +997,9 @@ def main() -> int:
     for k, n in phase_ops(systems, dev).items():
         launches[k] += n
 
-    # 4. kernels vs plain versions
+    # 4. kernels vs plain versions, then K1 and K2 at ragged shapes
     table = phase_kernels(pipeline, systems, dev)
+    phase_ragged(dev)
 
     # 5. goldens
     phase_goldens(pipeline, systems, dev)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ntsc_crt_tpu_torch.ops import fastpath, filters
@@ -172,6 +173,48 @@ def decode_rows_plain(rows, shifts, waveI, waveQ, bright, contrast, *,
     g = (((yv - 1126 * iv - 2605 * qv) >> 12) * ct) >> 8
     b = (((yv - 4530 * iv + 7021 * qv) >> 12) * ct) >> 8
     return torch.stack([r, g, b], dim=-1).clamp(0, 255).to(torch.uint8)
+
+
+def decode_rows_plain_any_shift(rows, shifts, waveI, waveQ, bright, contrast,
+                                **kw) -> torch.Tensor:
+    """decode_rows_plain for shifts below 0 as well (it takes shifts >= 0),
+    the reference the kernel is held to at such shifts: every line becomes
+    a frame of its own whose two field rows hold D zeros, D >=
+    -min(shifts), then the line's two rows, and its shift moves D later.
+    The kernel reads 0 before a line's first sample as after its second
+    row."""
+    B, L = shifts.shape
+    H, row0 = rows.shape[2], kw["row0"]
+    D = 2 * max(0, -int(shifts.min()))
+    ext = torch.cat([rows[:, row0:row0 + L], rows[:, row0 + 1:row0 + L + 1]],
+                    dim=2)
+    ext = torch.nn.functional.pad(ext, (D, 0)).reshape(B * L, 2, H + D // 2)
+    one = lambda v: v.reshape(B * L, 1, *v.shape[2:])  # noqa: E731
+    kw = {n: one(v) if torch.is_tensor(v) else v for n, v in kw.items()}
+    out = decode_rows_plain(ext, one(shifts + D), one(waveI), one(waveQ),
+                            one(bright), one(contrast), **dict(kw, row0=0))
+    return out.reshape(B, L, *out.shape[2:])
+
+
+def bloom_steps(rng: np.random.Generator, B: int, L: int, av_len: int,
+                outw: int, cc: int) -> dict:
+    """Bloom tables that reach every rule of the bloom walk, for holding
+    the kernel to its plain version: per row an EQ start lidx and a pixel
+    step dx of one of five kinds — the decoder's (near the drawn width),
+    past the EQ's end (meets the forced-zero sample, clamps at n_eq - 1),
+    0, negative, any int32 (p * dx wraps) — the last three moving the
+    source back.  int32 numpy arrays (B, L) under bloom_dx / bloom_lidx."""
+    lidx = rng.integers(2, 12, (B, L))
+    width = av_len - 2 * lidx + rng.integers(-6, 7, (B, L))
+    n_eq = eq_len(av_len, cc)
+    kinds = np.stack([(width << 12) // outw,
+                      np.full((B, L), ((n_eq + 6) << 12) // outw),
+                      np.zeros((B, L), np.int64),
+                      -rng.integers(1, 1 << 14, (B, L)),
+                      rng.integers(-2**31, 2**31, (B, L))])
+    dx = np.take_along_axis(kinds, rng.integers(0, 5, (1, B, L)), 0)[0]
+    return dict(bloom_dx=dx.astype(np.int32),
+                bloom_lidx=lidx.astype(np.int32))
 
 
 def bloom_line_width(sums: torch.Tensor, max_e: torch.Tensor) -> torch.Tensor:

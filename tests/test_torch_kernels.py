@@ -106,15 +106,31 @@ def test_k1_plain_matches_jax_kernel(cc, w, destw, col_map):
     same(got, k1_jax(x, destw, xo_mod, col_map))
 
 
+# (B, h, w, desth, destw, coefs) of K1's GPU cases; "ragged": 111 rows (the
+# last warp's lanes partly idle) and lines that are not a whole number of
+# 64-sample tiles (60 for cc 5), from a narrower image (cc 4) and a wider
+# one (cc 5); "aligned": destw % 4 == 0 (word stores), no bandlimiting
+K1_SHAPES = {
+    ("full", 4): (3, 240, 320, 236, NTSC.av_len, IIR),
+    ("full", 5): (3, 240, 320, 236, systems.PV1K.av_len, IIR),
+    ("ragged", 4): (3, 29, 20, 37, 37, IIR),
+    ("ragged", 5): (3, 29, 1000, 37, 753, IIR),
+    ("aligned", 4): (2, 60, 640, 40, 640, None),
+    ("aligned", 5): (2, 60, 100, 40, 640, None)}
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["full", "ragged", "aligned"])
 @pytest.mark.parametrize("cc", [4, 5])
 @pytest.mark.parametrize("per_row", [False, True])
-def test_k1_kernel_matches_plain(cuda, cc, per_row):
+def test_k1_kernel_matches_plain(cuda, cc, per_row, shape):
     """One carrier table a frame (NTSC) or one a row (the 2D-table
-    encoders, PV1K's 5-sample lines at their full 1487-sample width)."""
-    x = k1_inputs(cc, B=3, h=240, w=320, desth=236, cc=cc, per_row=per_row)
-    kw = dict(coefs=IIR, xo_mod=2,
-              destw=systems.PV1K.av_len if cc == 5 else NTSC.av_len)
+    encoders, PV1K's 5-sample lines at their full 1487-sample width), at
+    the shapes of K1_SHAPES."""
+    B, h, w, desth, destw, coefs = K1_SHAPES[shape, cc]
+    x = k1_inputs(cc + w, B=B, h=h, w=w, desth=desth, cc=cc,
+                  per_row=per_row)
+    kw = dict(coefs=coefs, xo_mod=2, destw=destw)
     want = encode.encode_rows(**to_torch(x), **kw)
     n = encode.LAUNCHES
     same(encode.encode_rows(**to_torch(x, cuda), **kw), want)
@@ -171,15 +187,52 @@ def test_k2_plain_matches_jax_kernel(locked):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cc", [4, 5])
-def test_k2_kernel_matches_plain(cuda, cc):
-    x = k2_inputs(cc, B=2, L=NTSC.lines, H=NTSC.hres, cc=cc, row0=3)
-    kw = dict(row0=3, coefs=dem._eq_coefs(NTSC), av_len=NTSC.av_len,
-              outw=640)
-    want = decode.decode_rows(**to_torch(x), **kw)
-    n = decode.LAUNCHES
+@pytest.mark.parametrize("shape", ["full", "ragged"])
+@pytest.mark.parametrize("cc,mode", [
+    (4, "threeband"), (5, "threeband"), (4, "conv4"), (4, "conv5"),
+    (4, "conv6"), (4, "conv7"), (4, "bloom"), (5, "bloom")])
+def test_k2_kernel_matches_plain(cuda, cc, mode, shape):
+    """Every mode at NTSC's shape and at a ragged one: 111 rows (the last
+    warp's lanes partly idle), outw 641 or 37 (not a whole number of
+    32-pixel tiles, nor of 4-byte words), shifts from before 0 to past 2H
+    (held to decode_rows_plain_any_shift, as the plain version takes
+    shifts >= 0), bloom steps of decode.bloom_steps."""
+    if shape == "full":
+        B, L, H, av_len, outw = 2, NTSC.lines, NTSC.hres, NTSC.av_len, 640
+    else:
+        B, L, H, av_len, outw = 3, 37, 200, 150, 641 if cc == 4 else 37
+    x = k2_inputs(cc + len(mode), B=B, L=L, H=H, cc=cc, row0=3)
+    rng = np.random.default_rng(len(mode))
+    if shape == "ragged":
+        x["shifts"] = rng.integers(-40, 2 * H - 20, (B, L)).astype(np.int32)
+    if mode == "bloom":
+        x.update(decode.bloom_steps(rng, B, L, av_len, outw, cc))
+    coefs = (("conv", int(mode[-1])) if mode.startswith("conv") else
+             dem._eq_coefs(NTSC))
+    kw = dict(row0=3, coefs=coefs, av_len=av_len, outw=outw)
+    want = decode.decode_rows_plain_any_shift(**to_torch(x), **kw)
+    counter = {"bloom": "BLOOM_LAUNCHES"}.get(
+        mode, "CONV_LAUNCHES" if mode.startswith("conv") else "LAUNCHES")
+    n = getattr(decode, counter)
     same(decode.decode_rows(**to_torch(x, cuda), **kw), want)
-    assert decode.LAUNCHES == n + 1
+    assert getattr(decode, counter) == n + 1
+
+
+@pytest.mark.parametrize("mode", ["threeband", "conv7", "bloom"])
+def test_k2_plain_any_shift_is_the_plain_version_from_shift_0(mode):
+    """decode_rows_plain_any_shift, which the GPU tests and the chip run
+    hold K2 to where shifts go below 0, equals the plain version wherever
+    the plain version is defined (shifts >= 0, up to past 2H)."""
+    B, L, H, av_len, outw = 2, 7, 60, 50, 37
+    x = k2_inputs(len(mode), B=B, L=L, H=H, cc=4, row0=2)
+    rng = np.random.default_rng(len(mode))
+    x["shifts"] = rng.integers(0, 2 * H + 5, (B, L)).astype(np.int32)
+    if mode == "bloom":
+        x.update(decode.bloom_steps(rng, B, L, av_len, outw, 4))
+    kw = dict(row0=2, av_len=av_len, outw=outw,
+              coefs=("conv", 7) if mode == "conv7" else dem._eq_coefs(NTSC))
+    same(decode.decode_rows_plain_any_shift(**to_torch(x), **kw),
+         decode.decode_rows_plain(**to_torch(x), **kw))
 
 
 # --- K3 hsync_chase ----------------------------------------------------------
