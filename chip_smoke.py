@@ -18,7 +18,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    cycles per dependent op that prices every chain below.
 4. kernels — each kernel against its plain torch version on the card, on the
    inputs the paths hand it at batch 1 and 64 (640x480 output): K1
-   encode_rows, K2 decode_rows (3-band), K3 hsync_chase and K6
+   encode_rows, K2 decode_rows (3-band), K3 hsync_chase, K4 ccf_ema and K6
    place_rows_uniform from an NTSC step; K2 in conv mode from an NTSC
    eq_mode="conv7" step; K2 in bloom mode and bloom_line_width from an NTSC
    do_bloom step; K4 ccf_ema and K5 vhs_region_b_entries from an NTSCVHS
@@ -26,12 +26,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    lines, K3 and K4 (VP 5) from a PV1K step; K1 and K4 (VP 3) from a SNES
    step; K7 on the Y/I/Q rows of the NTSC and PV1K K1 inputs; K8 on the
    NTSC K2 inputs' Y/I/Q rows, K9 on K8's output, and the unfused chain
-   against K2; K10's three patterns at the TPU probe's size.  Exact
-   equality; each side's time from CUDA events (the kernel's also with its
-   calls queued behind a spin kernel, see cuda_ms); each kernel's bound
-   from these inputs (see BOUNDS below).  Then K1 and K2 at small ragged shapes
+   against K2; K3 and K4 also at batch 512 on NTSC's and PV1K's inputs;
+   K10's three patterns at the TPU probe's size.  Exact equality; each
+   side's time from CUDA events (the kernel's also with its calls queued
+   behind a spin kernel, see cuda_ms); each kernel's bound from these
+   inputs (see BOUNDS below).  Then K1-K4 at small ragged shapes and edges
    (ragged_cases: partial warps and tiles, shifts before 0 and past H,
-   every K2 mode, bloom rows that restart or meet the forced-zero sample).
+   every K2 mode, bloom rows that restart or meet the forced-zero sample;
+   K3 estimates that wrap across H both ways, windows from below 0 and past
+   the rows, W 6, 8 and 16, at batch 5 and 512; K4 at m 16, VP 5, CC 5 over
+   ragged chunks and at one line).  Then one NTSC batch-1 step under
+   torch.cuda.set_sync_debug_mode: a synchronizing op inside the line scan
+   fails the run, any outside is reported with its source line.
 5. goldens — all 11 tags of tests/fixtures/device_parity_goldens.npz (NTSC,
    NTSC_b16, NTSCVHS, NTSCVHS_b16, NTSC_bloom, NTSC_conv7, PV1K, PV1K_b16,
    NES, SNES, NESRGB) replayed through step / step_batch on the card,
@@ -47,7 +53,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    step run on the CPU's plain path.  Then, for each path and batch, one
    step timed stage by stage (host clock around synchronized stages) and
    one step under torch.profiler (device launches and busy time, and each
-   of the port's kernels' device time and launches in that step).
+   of the port's kernels' device time and launches in that step); at batch
+   512 also the line scan's device operations (the rolled4 row select, the
+   rows2 concatenation, the burst gather, K3, K4), each with its device
+   time.
 7. variants — one batch-2 step each of fixed sync (do_vsync and do_hsync
    False: K3 must not launch), NTSC_RAINBOW, SNES, TEMPLATE and NESRGB,
    held to the CPU's plain path.
@@ -75,6 +84,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -278,8 +288,14 @@ def work_place(a, k, out):
 
 
 def work_hsync(a, k, out):
-    """Per window sample probed: load-add, compare, branch; per line 6.  The
-    probes are this data's: up to the first hit of each line's window."""
+    """Bytes: the samples each active line's search needs, up to its first
+    crossing (the kernel also stages each line's look-ahead span, which the
+    function does not need), the flags, hsync0 and the output.  Ops: an add
+    and a compare a probed sample, 6 a line.  Chain: 15 dependent ops an
+    active line in csrc/hsync.cu (the window's offset 3, a shuffle, the
+    funnel, two dp4a and their sum, the compare, the warp min, the move 2,
+    the wrap 2, the flag), the load off it; a shuffle and the warp min take
+    longer than the probe's dependent op."""
     rows2, active, h0 = a
     HP = rows2.shape[2]
     tW = 2 * k["W"]
@@ -290,19 +306,23 @@ def work_hsync(a, k, out):
     win = torch.where((x >= 0) & (x < HP), win, 0)
     hit = torch.cumsum(win, dim=2) <= k["thresh"]
     probes = torch.where(hit.any(2), hit.to(torch.int32).argmax(2) + 1, tW)
-    ops = int(probes.sum()) * 3 + probes.numel() * 6
-    chain = (LOAD_CYCLES + (2 * probes + 4) * dep()).sum(1).max()
-    return nbytes(rows2, active, h0, out), ops, int(chain)
+    probed = int(torch.where(active, probes, 0).sum())
+    chain = int(active.sum(1).max()) * 15 * dep()
+    return (probed + nbytes(active, h0, out),
+            probed * 2 + probes.numel() * 6, chain)
 
 
 def work_ccf(a, k, out):
-    """Per fold step: shared load, multiply, three for the truncating /128,
-    add — five of them on the chain; per line and class 4 (select, write)."""
+    """Per fold step: the multiply, three for the truncating /128, the add;
+    per line and class 4 (row select, activity select, write).  Chain: four
+    a step (csrc/ccf.cu's SASS: IMAD, SHF, LEA.HI, LEA.HI.SX32 with the
+    add) on each active line, and the first product and two selects on
+    each line."""
     per_cls, vper, active, ccf0 = a
     B, L, m, CC = per_cls.shape
     act = active.sum(1)
-    ops = int(act.sum()) * m * CC * 6 + B * L * CC * 4
-    chain = (int(act.max()) * m * 5 + L * 3) * dep()
+    ops = int(act.sum()) * m * CC * 5 + B * L * CC * 4
+    chain = (int(act.max()) * m * 4 + L * 3) * dep()
     return nbytes(*a, *out), ops, chain
 
 
@@ -531,7 +551,7 @@ def phase_kernels(pipeline, systems, dev):
     first label being the one its JSON row reports."""
     from ntsc_crt_tpu_torch.ops.kernels import probe, scanconv
     groups = ((systems.NTSC, ("encode_rows", "decode_rows", "hsync_chase",
-                              "place_rows_uniform"), {}),
+                              "ccf_ema", "place_rows_uniform"), {}),
               (systems.NTSC, ("decode_rows_conv",), CONV7),
               (systems.NTSC, ("decode_rows_bloom", "bloom_line_width"),
                BLOOM),
@@ -563,11 +583,37 @@ def phase_kernels(pipeline, systems, dev):
                                      "(K8, K9) differs from K2")
                 print(f"unfused chain K8 -> K9 batch {B} ({label}): equals "
                       "K2 at 0 LSB", flush=True)
+    phase_scan_kernels(pipeline, systems, dev, (MAIN_BATCH,), rows)
     x = probe.probe_input(PROBE_BLOCKS, dev)
     for pattern in ("eq3", "eq1", "peak"):
         check_kernel("probe", pattern, PROBE_BLOCKS, (x, pattern),
                      dict(iters=PROBE_ITERS), rows)
     return rows
+
+
+def phase_scan_kernels(pipeline, systems, dev, batches, rows):
+    """K3 and K4 against their plain versions on the inputs NTSC's and
+    PV1K's line scans hand them at each batch of `batches`, timed and
+    bounded as in phase_kernels."""
+    names = ("hsync_chase", "ccf_ema")
+    for cfg in (systems.NTSC, systems.PV1K):
+        for B in batches:
+            seen = capture_kernel_inputs(pipeline, cfg, B, names, dev, {})
+            for n in names:
+                check_kernel(n, path_label(cfg, {}), B, *seen[n], rows)
+
+
+# (L, HP, H, W, c0, far) of K3 inputs whose estimate walks across H both
+# ways: windows inside the rows, from below 0, past HP, W at the kernel's
+# limit, and its one-lane path: estimates from outside [0, H) (hsync0 up to
+# `far` lines of H off), W >= H (tests/test_torch_kernels.py K3_EDGES)
+K3_EDGES = ((60, 128, 40, 8, 0, 0), (60, 128, 40, 6, 0, 0),
+            (40, 128, 104, 8, 9, 0), (50, 48, 40, 8, -16, 0),
+            (70, 30, 60, 6, -3, 0), (33, 200, 150, 16, 5, 0),
+            (50, 64, 40, 8, 0, 3), (40, 64, 10, 12, 0, 0))
+# (L, m, CC, VP) of K4 inputs: the kernel's limits over ragged chunks, SNES's
+# rows, one line
+K4_EDGES = ((37, 16, 5, 5), (240, 10, 4, 3), (1, 3, 2, 2))
 
 
 def ragged_cases(dev):
@@ -620,26 +666,52 @@ def ragged_cases(dev):
             k.update({n: t(v) for n, v in
                       decode.bloom_steps(rng, B, L, av, outw, cc).items()})
         yield name, label, a, k
+    for B in (5, MAIN_BATCH):  # 5: a part-full block of K3's four warps
+        for L, HP, H, W, c0, far in K3_EDGES:
+            kind = rng.integers(0, 4, (B, L))[..., None]
+            cols = np.arange(HP)
+            edge = rng.integers(0, HP, (B, L))[..., None]
+            rows = rng.integers(-30, 60, (B, L, HP))
+            rows = np.where((kind == 3) & (cols >= edge) & (cols < edge + 40),
+                            -40, rows)
+            rows = np.where(kind == 1, -100, np.where(kind == 2, 100, rows))
+            act = rng.random((B, L)) > 0.2
+            act[:, 5:15] = False
+            yield ("hsync_chase", f"B {B}, L {L}, HP {HP}, H {H}, W {W}, "
+                   f"c0 {c0}, hsync0 in [{-far * H}, {H + far * H})",
+                   (t(rows.astype(np.int8)), t(act),
+                    t(i32(-far * H, H + far * H, B))),
+                   dict(W=W, c0=c0, thresh=-160, H=H))
+        for L, m, cc, vp in K4_EDGES:
+            lim = 1 << 30
+            yield ("ccf_ema", f"B {B}, L {L}, m {m}, CC {cc}, VP {vp}",
+                   (t(i32(-lim, lim, (B, L, m, cc))), t(i32(0, vp, (B, L))),
+                    t(rng.random((B, L)) > 0.3),
+                    t(i32(-lim, lim, (B, vp, cc)))), {})
 
 
 def phase_ragged(dev):
-    """K1 and K2 against their plain versions on the ragged_cases inputs,
-    at 0 LSB (K2's through decode_rows_plain_any_shift: the shifts go below
+    """K1-K4 against their plain versions on the ragged_cases inputs, at 0
+    LSB (K2's through decode_rows_plain_any_shift: the shifts go below
     0)."""
     from ntsc_crt_tpu_torch.ops.kernels import decode
     mods = kernel_modules()
     for name, label, a, k in ragged_cases(dev):
         kd = mods[name]
         got = getattr(kd.mod, kd.wrapper)(*a, **k)
-        want = (kd.plain(*a, **k) if name == "encode_rows"
-                else decode.decode_rows_plain_any_shift(*a, **k))
+        want = (decode.decode_rows_plain_any_shift(*a, **k)
+                if name.startswith("decode_rows") else kd.plain(*a, **k))
         torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if got.shape != want.shape or err != 0:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        if [g.shape for g in got] != [w.shape for w in want] or err != 0:
             raise SystemExit(f"{name} ragged ({label}): kernel differs from "
                              f"plain (max |err| {err})")
-        print(f"kernel {name} ragged ({label}) shape {tuple(got.shape)}: "
-              "equals plain at 0 LSB", flush=True)
+        print(f"kernel {name} ragged ({label}) shape "
+              f"{[tuple(g.shape) for g in got]}: equals plain at 0 LSB",
+              flush=True)
 
 
 def phase_ops(systems, dev):
@@ -878,6 +950,112 @@ def profile_step(fn):
     return len(evs), len(kernels), busy / 1e3, wall, top, ours
 
 
+def device_ms(avg) -> float:
+    """A key_averages() row's own device time, ms."""
+    us = getattr(avg, "self_device_time_total", None)
+    return (avg.self_cuda_time_total if us is None else us) / 1e3
+
+
+def profile_line_scan(pipeline, cfg, st, imgs, B, kw, card):
+    """The device operations of one step's line scan (models/demodulate.py
+    _line_scan: the rolled4 row select, the rows2 concatenation, the burst
+    gather and roll, K3, K4, the waves), each torch op with its own device
+    time and each port kernel, from one call of _line_scan on the step's
+    own arguments under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ntsc_crt_tpu_torch.models import demodulate as dem
+    dev = imgs.device
+    seen = {}
+
+    def record(name, fn):
+        def rec(*a, **k):
+            seen["args"] = (a, k)
+            return fn(*a, **k)
+        return rec
+
+    with patched([(dem, "_line_scan")], record):
+        pipeline.step_batch(cfg, st, imgs, *path_args(B, 0, dev), noise=12,
+                            **kw)
+    a, k = seen["args"]
+    dem._line_scan(*a, **k)                               # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dem._line_scan(*a, **k)
+        torch.cuda.synchronize()
+    ops = [(a.key, a.count, device_ms(a)) for a in prof.key_averages()
+           if a.key.startswith("aten::") and device_ms(a) > 0]
+    ours = {}
+    for e in prof.events():
+        name = (kernel_of(e.name)
+                if e.device_type == torch.autograd.DeviceType.CUDA else None)
+        if name is not None:
+            ms, n = ours.get(name, (0.0, 0))
+            ours[name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                          n + 1)
+    rows = sorted(ops, key=lambda r: -r[2]) + [
+        (k, n, ms) for k, (ms, n) in ours.items()]
+    print(f"{path_label(cfg, kw)} line scan batch {B}, device ms (calls): "
+          + ", ".join(f"{k} {ms:.4f} ({n})" for k, n, ms in rows)
+          + f"; in all {sum(r[2] for r in rows):.4f}  [{card}]", flush=True)
+
+
+def phase_syncs(pipeline, systems, dev, gate=True):
+    """One NTSC batch-1 step under torch.cuda.set_sync_debug_mode("warn"),
+    each synchronizing op reported by the line of the port that called it;
+    one inside the line scan fails the run unless `gate` is off (to run the
+    script on a package from before the line scan lost its sync)."""
+    import traceback
+
+    from ntsc_crt_tpu_torch.models import demodulate as dem
+    cfg = systems.NTSC
+    img = frames_for(cfg, 1, OUTH, OUTW, 1234, dev)
+    st = pipeline.init_batch(cfg, 1, OUTW, OUTH, device=dev)
+    st = pipeline.step_batch(cfg, st, img, *path_args(1, 0, dev), noise=12)
+    torch.cuda.synchronize()
+    in_scan, found = [False], {False: set(), True: set()}
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        # the innermost frame of the port, else of this script (a sync the
+        # port did not ask for)
+        stack = traceback.extract_stack()[:-1]
+        port = [f for f in stack if "ntsc_crt_tpu_torch" in f.filename]
+        mine = [f for f in stack if f.filename == __file__]
+        where = (port or mine or stack)[-1]
+        found[in_scan[0]].add(
+            f"{Path(where.filename).name}:{where.lineno}"
+            + ("" if port else " (not the port's)"))
+
+    def mark(name, fn):
+        def run(*a, **k):
+            in_scan[0] = True
+            try:
+                return fn(*a, **k)
+            finally:
+                in_scan[0] = False
+        return run
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with patched([(dem, "_line_scan")], mark):
+                pipeline.step_batch(cfg, st, img, *path_args(1, 1, dev),
+                                    noise=12)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    print("NTSC batch-1 step under set_sync_debug_mode: synchronizing ops "
+          f"inside _line_scan at {', '.join(sorted(found[True])) or 'none'};"
+          f" outside it at {', '.join(sorted(found[False])) or 'none'}",
+          flush=True)
+    if found[True] and gate:
+        raise SystemExit("the line scan synchronizes the stream")
+
+
 def counted(label, needed, run):
     """run() with every launch count zeroed just before it and read just
     after; fails unless each kernel of `needed` launched and no other did.
@@ -949,6 +1127,7 @@ def phase_path(pipeline, cfg, kw, needed, card, dev, steps1=20, stepsB=5):
               "ms, launches): " + (", ".join(
                   f"{k} {ms:.4f} ({n})" for k, (ms, n) in ours.items())
                   or "none in the trace"), flush=True)
+    profile_line_scan(pipeline, cfg, stB, imgsB, B, kw, card)
     return launches
 
 
@@ -997,9 +1176,12 @@ def main() -> int:
     for k, n in phase_ops(systems, dev).items():
         launches[k] += n
 
-    # 4. kernels vs plain versions, then K1 and K2 at ragged shapes
+    # 4. kernels vs plain versions, then K1-K4 at ragged shapes and edges
     table = phase_kernels(pipeline, systems, dev)
     phase_ragged(dev)
+
+    # the line scan runs without a stream synchronize
+    phase_syncs(pipeline, systems, dev)
 
     # 5. goldens
     phase_goldens(pipeline, systems, dev)

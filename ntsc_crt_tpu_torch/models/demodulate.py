@@ -284,8 +284,9 @@ def _line_scan(cfg: SystemConfig, inp2d, hsync0, ccf0, vsync, hue, hue_sn,
     bidx = bbase.long()[..., None] + torch.arange(cfg.burst_len, device=dev)
     bvals = torch.gather(rows2, 2, bidx).to(torch.int32)  # (B, L, burst_len)
     m = cfg.burst_len // CC
-    col_for_cls = [(k - cfg.cb_beg) % CC for k in range(CC)]
-    per_cls = bvals.reshape(B, L, m, CC)[..., col_for_cls]
+    # class k is burst column (k - cb_beg) mod CC: a rotation, which a list
+    # index would copy to the card through a stream synchronize
+    per_cls = torch.roll(bvals.reshape(B, L, m, CC), cfg.cb_beg % CC, dims=-1)
     ccf_f, ccr_l = ccf.ccf_ema(per_cls.contiguous(), vper_l.contiguous(),
                                active_l.contiguous(), ccf0.contiguous())
 

@@ -7,7 +7,8 @@ wrap), keep the old row on an inactive line, write the row back and emit it.
 
 Replaces ``ntsc_crt_tpu/ops/pallas/ccf_scan.py::ccf_ema`` and keeps its
 contract.  A CPU tensor runs the plain torch loop below; a CUDA tensor
-launches csrc/ccf.cu.
+launches csrc/ccf.cu (one warp an entry, its rows streamed through shared
+memory with cp.async while the lanes fold).
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ estimate after every line.
 
 Replaces ``ntsc_crt_tpu/ops/pallas/hsync_scan.py::hsync_chase`` and keeps its
 contract (rows2, active_l, hsync0, W, c0, thresh, H).  A CPU tensor runs the
-plain torch loop below; a CUDA tensor launches csrc/hsync.cu.
+plain torch loop below; a CUDA tensor launches csrc/hsync.cu (one warp an
+entry, each line's window staged lines ahead with cp.async).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from ntsc_crt_tpu_torch.ops.fixedpoint import posmod
 
 # kernel launches since the last reset (read by chip_smoke.py)
 LAUNCHES = 0
+# the kernel's limit on W: lane t of a warp sums window samples 0..t < 2W
+MAX_W = 16
 
 
 def hsync_chase(rows2: torch.Tensor, active_l: torch.Tensor,
@@ -35,9 +38,15 @@ def hsync_chase(rows2: torch.Tensor, active_l: torch.Tensor,
     global LAUNCHES
     dev = rows2.device
     B, L, HP = rows2.shape
+    if not (1 <= W <= MAX_W and B >= 1 and L >= 1 and HP >= 1 and H >= 1):
+        raise ValueError(f"hsync_chase: needs 1 <= W <= {MAX_W}, got W={W} "
+                         f"B={B} L={L} H={H}")
     build.check("rows2", rows2, torch.int8, (B, L, HP), dev)
     build.check("active_l", active_l, torch.bool, (B, L), dev)
     build.check("hsync0", hsync0, torch.int32, (B,), dev)
+    if rows2.data_ptr() % 4:
+        raise ValueError("hsync_chase: rows2 must start on a 4-byte "
+                         "boundary (the kernel copies aligned words)")
     out = torch.empty((B, L), dtype=torch.int32, device=dev)
     build.launch("ntsc_hsync_chase", rows2.data_ptr(), active_l.data_ptr(),
                  hsync0.data_ptr(), out.data_ptr(), B, L, HP, W, c0, thresh,

@@ -257,26 +257,127 @@ def k3_inputs(seed, B, L=21, HP=512, locked=True):
                 hsync0=h0.astype(np.int32))
 
 
-@pytest.mark.parametrize("B,locked", [(1, True), (1, False), (16, True),
-                                      (16, False)])
-def test_k3_plain_matches_jax_kernel(B, locked):
+# (L, HP, H, W, c0) of rows whose estimate walks across H both ways: lines
+# all at -100 cross at t = 0 (a step of -W), lines at +100 never cross
+# (t = 2W, a step of +W), the rest noise with a pulse anywhere; a run of
+# inactive lines.  Inside the JAX kernel's contract (c0 >= 0, windows inside
+# [0, HP), HP a multiple of 128) unless noted.
+K3_EDGES = {
+    "wrap-W8": (60, 128, 40, 8, 0),
+    "wrap-W6": (60, 128, 40, 6, 0),
+    "ends-at-HP": (40, 128, 104, 8, 9),      # H - 1 + c0 + 2W == HP
+    # outside it: windows from below 0, and past HP
+    "below-0": (50, 48, 40, 8, -16),
+    "past-HP": (70, 30, 60, 6, -3),
+    "W16": (33, 200, 150, 16, 5),
+    # the kernel's one-lane path: estimates from outside [0, H), W >= H
+    "start-outside-H": (50, 64, 40, 8, 0),
+    "W-past-H": (40, 64, 10, 12, 0),
+}
+K3_OUTSIDE_JAX = ("below-0", "past-HP", "W16", "start-outside-H", "W-past-H")
+
+
+def k3_edge_inputs(seed, B, case):
+    L, HP, H, W, c0 = K3_EDGES[case]
+    rng = np.random.default_rng(seed)
+    kind = rng.integers(0, 4, (B, L))[..., None]
+    cols = np.arange(HP)
+    edge = rng.integers(0, HP, (B, L))[..., None]
+    rows2 = rng.integers(-30, 60, (B, L, HP))
+    rows2 = np.where((kind == 3) & (cols >= edge) & (cols < edge + 40), -40,
+                     rows2)
+    rows2 = np.where(kind == 1, -100, np.where(kind == 2, 100, rows2))
+    act = rng.random((B, L)) > 0.2
+    act[:, 5:15] = False
+    far = 3 * H if case == "start-outside-H" else 0
+    return (dict(rows2=rows2.astype(np.int8), active_l=act,
+                 hsync0=rng.integers(-far, H + far, B).astype(np.int32)),
+            dict(W=W, c0=c0, thresh=4 * -40, H=H))
+
+
+def k3_scalar(rows2, active_l, hsync0, *, W, c0, thresh, H):
+    """crt_core.c:434-450 as a loop over Python ints, samples outside
+    [0, HP) read as 0."""
+    B, L, HP = rows2.shape
+    out = np.empty((B, L), np.int32)
+    for b in range(B):
+        hs = int(hsync0[b])
+        for ln in range(L):
+            run, j = 0, 2 * W
+            for t in range(2 * W):
+                x = hs + c0 + t
+                run += int(rows2[b, ln, x]) if 0 <= x < HP else 0
+                if run <= thresh:
+                    j = t
+                    break
+            if active_l[b, ln]:
+                hs = (j - W + hs) % H
+            out[b, ln] = hs
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(c, id=f"{c[0]}-{c[1]}")
+    for c in ((1, True), (1, False), (16, True), (16, False))] + [
+    c for c in K3_EDGES if c not in K3_OUTSIDE_JAX])
+def test_k3_plain_matches_jax_kernel(case):
     import jax.numpy as jnp
     from ntsc_crt_tpu.ops.pallas import hsync_scan as hsk
-    x = k3_inputs(B + locked, B, locked=locked)
-    got = hsync.hsync_chase(**to_torch(x), **K3)
-    want = hsk.hsync_chase(*(jnp.asarray(x[k]) for k in
+    if isinstance(case, tuple):
+        B, locked = case
+        x, k = k3_inputs(B + locked, B, locked=locked), K3
+    else:
+        x, k = k3_edge_inputs(len(case), 3, case)
+    got = hsync.hsync_chase(**to_torch(x), **k)
+    want = hsk.hsync_chase(*(jnp.asarray(x[n]) for n in
                              ("rows2", "active_l", "hsync0")),
-                           interpret=True, **K3)
+                           interpret=True, **k)
     same(got, want)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B", [1, 64])
-def test_k3_kernel_matches_plain(cuda, B):
-    x = k3_inputs(B, B, L=NTSC.lines, locked=False)
-    want = hsync.hsync_chase(**to_torch(x), **K3)
+@pytest.mark.parametrize("case", K3_OUTSIDE_JAX)
+def test_k3_plain_matches_scalar_loop_outside_the_jax_contract(case):
+    """Windows from below 0 or past HP (the JAX kernel's caller asserts them
+    away, ntsc_crt_tpu/models/demodulate.py:393-395), W = 16, estimates that
+    start outside [0, H) and W >= H: the plain version against the
+    reference loop, missing samples read as 0."""
+    x, k = k3_edge_inputs(len(case), 3, case)
+    same(hsync.hsync_chase(**to_torch(x), **k), k3_scalar(**x, **k))
+
+
+@pytest.mark.parametrize("W", [0, hsync.MAX_W + 1])
+def test_k3_kernel_path_refuses_w_past_its_limit(W):
+    """Lane t of the kernel's warp holds window sample t < 2W <= 32."""
+    x = {n: torch.as_tensor(v).to("meta") for n, v in
+         k3_inputs(0, B=1).items()}
     n = hsync.LAUNCHES
-    same(hsync.hsync_chase(**to_torch(x, cuda), **K3), want)
+    with pytest.raises(ValueError, match="needs 1 <= W"):
+        hsync.hsync_chase(**x, **dict(K3, W=W))
+    assert hsync.LAUNCHES == n
+
+
+@pytest.mark.gpu
+def test_k3_kernel_path_refuses_unaligned_rows(cuda):
+    """The kernel copies aligned words of the rows: rows2 must start on a
+    4-byte boundary."""
+    x = to_torch(k3_inputs(0, B=1), cuda)
+    flat = torch.empty(x["rows2"].numel() + 1, dtype=torch.int8, device=cuda)
+    rows2 = flat[1:].view(x["rows2"].shape)
+    with pytest.raises(ValueError, match="4-byte"):
+        hsync.hsync_chase(rows2, x["active_l"], x["hsync0"], **K3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 5, 64, 512])   # 5: a part-full block
+@pytest.mark.parametrize("case", ["ntsc"] + list(K3_EDGES))
+def test_k3_kernel_matches_plain(cuda, case, B):
+    if case == "ntsc":
+        x, k = k3_inputs(B, B, L=NTSC.lines, locked=False), K3
+    else:
+        x, k = k3_edge_inputs(B, B, case)
+    want = hsync.hsync_chase(**to_torch(x), **k)
+    n = hsync.LAUNCHES
+    same(hsync.hsync_chase(**to_torch(x, cuda), **k), want)
     assert hsync.LAUNCHES == n + 1
 
 
@@ -297,7 +398,8 @@ def k4_inputs(seed, B, L, m, CC, VP, lim=1 << 20):
     (1, 4, 5, 9, 26, 1 << 20),
     (5, 8, 4, 17, 30, 1 << 20),
     (3, 4, 5, 1, 40, 1 << 20),
-    (1, 4, 10, 3, 24, 1 << 30)])    # full range: ccr * 127 wraps
+    (1, 4, 10, 3, 24, 1 << 30),     # full range: ccr * 127 wraps
+    (5, 5, 16, 2, 33, 1 << 30)])    # the kernel's limits; L past a chunk
 def test_k4_plain_matches_jax_kernel(VP, CC, m, B, L, lim):
     import jax.numpy as jnp
     from ntsc_crt_tpu.ops.pallas import ccf_scan
@@ -310,10 +412,19 @@ def test_k4_plain_matches_jax_kernel(VP, CC, m, B, L, lim):
     same(got_r, want_r)
 
 
+# (L, m, CC, VP): NTSC, SNES, PV1K, the kernel's limits over ragged chunks,
+# one line
+K4_CASES = {"ntsc": (NTSC.lines, 10, 4, 1), "snes": (240, 10, 4, 3),
+            "pv1k": (240, 10, 5, 5), "limits": (37, 16, 5, 5),
+            "one-line": (1, 3, 2, 2)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,VP,CC", [(1, 1, 4), (64, 1, 4), (5, 5, 5)])
-def test_k4_kernel_matches_plain(cuda, B, VP, CC):
-    x = k4_inputs(B, B, NTSC.lines, NTSC.burst_len // CC, CC, VP, 1 << 30)
+@pytest.mark.parametrize("B", [1, 5, 512])
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_k4_kernel_matches_plain(cuda, case, B):
+    L, m, CC, VP = K4_CASES[case]
+    x = k4_inputs(B, B, L, m, CC, VP, 1 << 30)
     want = ccf.ccf_ema(**to_torch(x))
     n = ccf.LAUNCHES
     got = ccf.ccf_ema(**to_torch(x, cuda))
