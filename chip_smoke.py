@@ -26,18 +26,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    lines, K3 and K4 (VP 5) from a PV1K step; K1 and K4 (VP 3) from a SNES
    step; K7 on the Y/I/Q rows of the NTSC and PV1K K1 inputs; K8 on the
    NTSC K2 inputs' Y/I/Q rows, K9 on K8's output, and the unfused chain
-   against K2; K3 and K4 also at batch 512 on NTSC's and PV1K's inputs;
-   K10's three patterns at the TPU probe's size.  Exact equality; each
-   side's time from CUDA events (the kernel's also with its calls queued
-   behind a spin kernel, see cuda_ms); each kernel's bound from these
-   inputs (see BOUNDS below).  Then K1-K4 at small ragged shapes and edges
-   (ragged_cases: partial warps and tiles, shifts before 0 and past H,
-   every K2 mode, bloom rows that restart or meet the forced-zero sample;
-   K3 estimates that wrap across H both ways, windows from below 0 and past
-   the rows, W 6, 8 and 16, at batch 5 and 512; K4 at m 16, VP 5, CC 5 over
-   ragged chunks and at one line).  Then one NTSC batch-1 step under
-   torch.cuda.set_sync_debug_mode: a synchronizing op inside the line scan
-   fails the run, any outside is reported with its source line.
+   against K2; K3 and K4 also at batch 512 on NTSC's and PV1K's inputs, K5
+   on NTSCVHS's and bloom_line_width (its line sums included) on the
+   bloom path's; K10's three patterns at the TPU probe's size.  Exact
+   equality; each side's time from CUDA events (the kernel's also with its
+   calls queued behind a spin kernel, see cuda_ms); each kernel's bound
+   from these inputs (see BOUNDS below).  Then K1-K5 and bloom_line_width
+   at small ragged shapes and edges (ragged_cases: partial warps and tiles,
+   shifts before 0 and past H, every K2 mode, bloom rows that restart or
+   meet the forced-zero sample; K3 estimates that wrap across H both ways,
+   windows from below 0 and past the rows, W 6, 8 and 16, at batch 5 and
+   512; K4 at m 16, VP 5, CC 5 over ragged chunks and at one line; K5 at H
+   1, 7, 40 and 910 with bands cut short and steps past 19H from the seeds
+   0 and 2**32 - 1; bloom_line_width's windows from below 0, spilling,
+   past 2H and wrapping int32, with max_e 0, -1 and 96256, rows whose
+   chunks straddle the tensor's end, L past one 256-line pass).  Then one
+   NTSC batch-1 step under torch.cuda.set_sync_debug_mode: a synchronizing
+   op inside the line scan fails the run, any outside is reported with its
+   source line.
 5. goldens — all 11 tags of tests/fixtures/device_parity_goldens.npz (NTSC,
    NTSC_b16, NTSCVHS, NTSCVHS_b16, NTSC_bloom, NTSC_conv7, PV1K, PV1K_b16,
    NES, SNES, NESRGB) replayed through step / step_batch on the card,
@@ -73,7 +79,8 @@ rate).  For the serial kernels (K1, K2, K3, K4, K5, bloom_line_width, K7,
 K8, K10) the dependent chain of the longest entry is also priced
 (`chain`): the cycles per dependent source op that the probe measured in
 this run (eq1, one warp a scheduler), 260 cycles per dependent load that
-hits L2 (assumed), at the SM clock read during the probe.
+hits L2 (assumed), at the SM clock read during the probe; K5's line also
+prices the parent design's chain (a thread's eight ops a step).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Every number is measured in this run.
@@ -102,8 +109,9 @@ ORIGIN = {  # kernel -> (CUDA source, the Pallas kernel's pallas_call)
                          "ntsc_crt_tpu/ops/pallas/decode_fused.py:416"),
     "decode_rows_bloom": ("ntsc_crt_tpu_torch/csrc/decode.cu",
                           "ntsc_crt_tpu/ops/pallas/decode_fused.py:416"),
-    # no Pallas kernel: the JAX decoder runs this chain as a lax.scan
-    "bloom_line_width": ("ntsc_crt_tpu_torch/csrc/decode.cu",
+    # no Pallas kernel: the JAX decoder forms the line sums and runs this
+    # chain as a lax.scan
+    "bloom_line_width": ("ntsc_crt_tpu_torch/csrc/bloom.cu",
                          "ntsc_crt_tpu/models/demodulate.py:886"),
     "hsync_chase": ("ntsc_crt_tpu_torch/csrc/hsync.cu",
                     "ntsc_crt_tpu/ops/pallas/hsync_scan.py:318"),
@@ -251,13 +259,35 @@ def work_decode(a, k, out):
             chain(int(march.max())))
 
 
+def line_window_bytes(H, xpos, av):
+    """The row bytes the lines' windows need: line l reads its row over
+    [max(xpos, 0), min(xpos + av, H)) and the next row over [0, xpos + av -
+    H) clipped to [0, H) (int32 wrap, as the kernel); a row counts the union
+    of its own window and the spill into it once."""
+    x = xpos.long()
+    end = (x + av + 2**31) % 2**32 - 2**31                # int32 wrap
+    a0 = x.clamp(min=0)
+    a1 = torch.maximum(end.clamp(max=H), a0)
+    spill = (end - H).clamp(0, H)
+    prev = torch.cat([torch.zeros_like(spill[:, :1]), spill[:, :-1]], dim=1)
+    both = (torch.minimum(a1, prev) - a0).clamp(min=0)    # window ∩ spill
+    return int((a1 - a0 + prev - both).sum() + spill[:, -1].sum())
+
+
 def work_line_width(a, k, out):
-    """Per line: the drive term (subtract, shift, a division by max_e of
-    about 20), the multiply, the truncating /128 (3) and the add — five of
-    them on the chain, and the store."""
-    sums, _ = a
-    B, L = sums.shape
-    return nbytes(*a, out), B * L * 30, L * 5 * dep()
+    """Bytes: the rows' bytes the windows need (line_window_bytes), xpos,
+    max_e, the output.  Ops: a dp4a and a mask select a window word; per
+    line the ranges 12, the warp reduction, the drive (subtract, shift, a
+    division by max_e of about 20) and the chain's 5 (the multiply, the
+    truncating /128 as three, the add).  Chain: the EMA's 5 a line, after
+    the L / 16 lines its warp sums one after another (csrc/bloom.cu's 16
+    warps a frame), each a load's latency."""
+    rows, xpos, max_e = a
+    B, L = xpos.shape
+    win = line_window_bytes(rows.shape[2], xpos, k["av_len"])
+    ops = (win // 4) * 2 + B * L * 40
+    chain = L * 5 * dep() + -(-L // 16) * LOAD_CYCLES
+    return win + nbytes(xpos, max_e, out), ops, chain
 
 
 def work_place(a, k, out):
@@ -329,9 +359,21 @@ def work_ccf(a, k, out):
 def work_vhs(a, k, out):
     """Per step: two multiply-adds, shift, the % 20 as multiply-high, shift
     and multiply-subtract, the test's multiply-add, compare, select, store —
-    ten, eight of them on the chain (csrc/vhs.cu)."""
-    n, B = out.shape
-    return nbytes(*a, out), n * B * 10, n * 8 * dep()
+    ten, the function's own work whatever the design.  Chain (csrc/vhs.cu):
+    a batch of ten 32-position windows waits on 86 dependent ops — the x
+    jumps 10, a draw and its ballot 5, the window pick 10, a walk's 16
+    steps of 3, the ten shuffles and the next position 13 — and an entry
+    takes (its positions) / 320 batches, plus a restart at each of the 19
+    band ends; its positions are 2 a step plus its three-call steps, read
+    off the entry states.  The parent's one-thread march priced eight a
+    step: returned beside it."""
+    from ntsc_crt_tpu_torch.ops.kernels import vhs
+    B, n = out.shape
+    u = out.long() & 0xFFFFFFFF
+    three = ((u[:, :-1] * vhs.A2 + vhs.C2) & 0xFFFFFFFF) != u[:, 1:]
+    positions = 2 * n + int(three.sum(1).max())
+    return nbytes(*a, out), n * B * 10, (positions // 320 + 20) * 86 * dep(), \
+        n * 8 * dep()
 
 
 def work_iir(a, k, out):
@@ -368,12 +410,15 @@ def work_probe(a, k, out):
 
 
 def bound(work):
-    """(bound ms, "bytes" or "operations", chain ms or None)."""
-    nb, ops, chain = work
+    """(bound ms, "bytes" or "operations", chain ms or None, the parent
+    design's chain ms or None) from a work counter's (bytes, ops, chain
+    cycles[, the parent design's chain cycles])."""
+    nb, ops, chain, old = (*work, None)[:4]
     t_bytes, t_ops = nb / HBM_BYTES_PER_S, ops / MEASURED["int32_per_s"]
+    ms = lambda c: (None if c is None  # noqa: E731
+                    else c / MEASURED["sm_hz"] * 1e3)
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations",
-            None if chain is None else chain / MEASURED["sm_hz"] * 1e3)
+            "bytes" if t_bytes >= t_ops else "operations", ms(chain), ms(old))
 
 
 class Kernel:
@@ -532,8 +577,10 @@ def check_kernel(name, label, B, a, k, rows):
     ms = cuda_ms(lambda: kern(*a, **k), 20)
     spin_ms = cuda_ms(lambda: kern(*a, **k), 20, spin=True)
     plain_ms = cuda_ms(lambda: kd.plain(*a, **k), 1)
-    bound_ms, bound_by, chain_ms = bound(kd.work(a, k, got))
+    bound_ms, bound_by, chain_ms, old_ms = bound(kd.work(a, k, got))
     chain = "" if chain_ms is None else f", chain {chain_ms:.4f} ms"
+    if old_ms is not None:
+        chain += f" (the parent design's {old_ms:.4f} ms)"
     print(f"kernel {name} batch {B} ({label}) shapes "
           f"{[tuple(g.shape) for g in got_t]}: {ms:.4f} ms (behind a spin "
           f"{spin_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
@@ -592,15 +639,19 @@ def phase_kernels(pipeline, systems, dev):
 
 
 def phase_scan_kernels(pipeline, systems, dev, batches, rows):
-    """K3 and K4 against their plain versions on the inputs NTSC's and
-    PV1K's line scans hand them at each batch of `batches`, timed and
-    bounded as in phase_kernels."""
-    names = ("hsync_chase", "ccf_ema")
-    for cfg in (systems.NTSC, systems.PV1K):
+    """K3 and K4 on the inputs NTSC's and PV1K's line scans hand them, K5 on
+    NTSCVHS's noise inputs and bloom_line_width on the bloom path's, each
+    against its plain version at each batch of `batches`, timed and bounded
+    as in phase_kernels."""
+    groups = ((systems.NTSC, ("hsync_chase", "ccf_ema"), {}),
+              (systems.PV1K, ("hsync_chase", "ccf_ema"), {}),
+              (systems.NTSCVHS, ("vhs_region_b_entries",), VHS_KW),
+              (systems.NTSC, ("bloom_line_width",), BLOOM))
+    for cfg, names, kw in groups:
         for B in batches:
-            seen = capture_kernel_inputs(pipeline, cfg, B, names, dev, {})
+            seen = capture_kernel_inputs(pipeline, cfg, B, names, dev, kw)
             for n in names:
-                check_kernel(n, path_label(cfg, {}), B, *seen[n], rows)
+                check_kernel(n, path_label(cfg, kw), B, *seen[n], rows)
 
 
 # (L, HP, H, W, c0, far) of K3 inputs whose estimate walks across H both
@@ -614,6 +665,16 @@ K3_EDGES = ((60, 128, 40, 8, 0, 0), (60, 128, 40, 6, 0, 0),
 # (L, m, CC, VP) of K4 inputs: the kernel's limits over ragged chunks, SNES's
 # rows, one line
 K4_EDGES = ((37, 16, 5, 5), (240, 10, 4, 3), (1, 3, 2, 2))
+# (H, n_steps) of K5 inputs: a band a step, the last band cut short by 5
+# steps, 9 steps past 19H, NTSC's H cut short (as the CPU tests' K5_EDGES,
+# tests/test_torch_kernels.py)
+K5_EDGES = ((1, 19), (7, 19 * 7 - 5), (7, 19 * 7 + 9), (40, 19 * 40),
+            (40, 19 * 40 - 5), (40, 19 * 40 + 9), (910, 19 * 910 - 5))
+# (L, H, av, row0, extra rows) of bloom_line_width inputs: NTSC's rolled4,
+# odd rows whose 16-byte chunks straddle rows and the tensor's end with L
+# past the kernel's 256-line pass, windows wider than a row, one-byte rows
+LINE_EDGES = ((240, 910, 753, 3, 3), (300, 61, 50, 1, 0), (7, 13, 30, 0, 0),
+              (9, 1, 3, 0, 0))
 
 
 def ragged_cases(dev):
@@ -622,8 +683,12 @@ def ragged_cases(dev):
     (K1's 64 or 60 samples, K2's 32 pixels) or of 4 bytes, an image wider
     than the line, shifts before 0 and past H, K2's conv4-conv7, and bloom
     rows whose source moves back (dx <= 0, or p*dx wrapping), clamps at
-    n_eq - 1 or meets the forced-zero sample.  Yields (kernel, label, args,
-    kwargs)."""
+    n_eq - 1 or meets the forced-zero sample; K3 and K4 at their edges
+    (K3_EDGES, K4_EDGES), K5 at small H, bands cut short and steps past 19H
+    from the seeds 0 and 2**32 - 1 (K5_EDGES), bloom_line_width on windows
+    from below 0, spilling, past 2H and wrapping, with max_e 0, -1 and
+    96256 (LINE_EDGES); the last four at batch 5 and 512.  Yields (kernel,
+    label, args, kwargs)."""
     from ntsc_crt_tpu_torch.models import demodulate as dem
     from ntsc_crt_tpu_torch.models import systems
     from ntsc_crt_tpu_torch.ops import filters
@@ -688,12 +753,33 @@ def ragged_cases(dev):
                    (t(i32(-lim, lim, (B, L, m, cc))), t(i32(0, vp, (B, L))),
                     t(rng.random((B, L)) > 0.3),
                     t(i32(-lim, lim, (B, vp, cc)))), {})
+        for H, n in K5_EDGES:
+            st = rng.integers(0, 2**32, B, dtype=np.uint64)
+            st[:2] = [0, 2**32 - 1]
+            yield ("vhs_region_b_entries", f"B {B}, H {H}, n_steps {n}",
+                   (t(st.astype(np.uint32).view(np.int32)),),
+                   dict(n_steps=n, H=H))
+        for L, H, av, row0, extra in LINE_EDGES:
+            # windows inside the row, from below 0, spilling, past 2H, or
+            # from any int32 (xpos + av wraps); max_e 0, -1, 96256
+            kind = rng.integers(0, 5, (B, L))
+            lo = np.array([0, -av - 5, H - av, 2 * H - av, -2**31])[kind]
+            hi = np.array([max(H - av, 0) + 1, 0, H + 5, 3 * H, 2**31])[kind]
+            max_e = rng.integers(-2**31, 2**31, B)
+            max_e[:3] = [0, -1, 96256]
+            yield ("bloom_line_width",
+                   f"B {B}, L {L}, H {H}, av {av}, row0 {row0}",
+                   (t(rng.integers(-128, 128, (B, row0 + L + 1 + extra, H),
+                                   dtype=np.int8)),
+                    t((lo + (rng.random((B, L)) * (hi - lo))).astype(
+                        np.int64).astype(np.int32)),
+                    t(max_e.astype(np.int32))), dict(row0=row0, av_len=av))
 
 
 def phase_ragged(dev):
-    """K1-K4 against their plain versions on the ragged_cases inputs, at 0
-    LSB (K2's through decode_rows_plain_any_shift: the shifts go below
-    0)."""
+    """K1-K5 and bloom_line_width against their plain versions on the
+    ragged_cases inputs, at 0 LSB (K2's through
+    decode_rows_plain_any_shift: the shifts go below 0)."""
     from ntsc_crt_tpu_torch.ops.kernels import decode
     mods = kernel_modules()
     for name, label, a, k in ragged_cases(dev):
@@ -748,7 +834,13 @@ def phase_ops(systems, dev):
     print(f"op entry points: iir_lowpass on {tuple(yiq.shape)} equals the "
           f"plain march; the unfused decode at batch {B} equals K2 at 0 LSB",
           flush=True)
-    rep = out["probe"]
+    set_rates(out["probe"])
+    return launches
+
+
+def set_rates(rep) -> None:
+    """MEASURED from the probe's report, printed with it."""
+    from ntsc_crt_tpu_torch.ops.kernels import probe
     probe.print_report(rep)
     MEASURED.update(dep_cycles=rep["dep_cycles"],
                     sm_hz=rep["latency"]["sm_mhz"] * 1e6,
@@ -757,7 +849,68 @@ def phase_ops(systems, dev):
     print(f"bounds price int32 at {MEASURED['int32_per_s'] / 1e12:.2f} T "
           f"source ops/s and chains at {MEASURED['dep_cycles']:.3f} cycles a "
           f"dependent op, {MEASURED['sm_hz'] / 1e6:.0f} MHz", flush=True)
-    return launches
+
+
+# entry point -> (kernel, preset, keywords) of the path whose inputs a
+# design variant of that kernel is timed on (time_variants)
+VARIANT_PATHS = {
+    "ntsc_hsync_chase": ("hsync_chase", "NTSC", {}),
+    "ntsc_ccf_ema": ("ccf_ema", "NTSC", {}),
+    "ntsc_vhs_region_b_entries": ("vhs_region_b_entries", "NTSCVHS", VHS_KW),
+    "ntsc_bloom_line_width": ("bloom_line_width", "NTSC", BLOOM),
+}
+
+
+def time_variants(sources, batches=(1, 64, MAIN_BATCH)) -> None:
+    """Design runs, on the card: each CUDA source of `sources` — a copy of
+    a kernel's csrc/*.cu with its design changed and its entry point kept —
+    is built alone, launched through the package's own wrapper, held to the
+    plain version at 0 LSB and timed and bounded as phase_kernels does, on
+    the inputs the kernel's path (VARIANT_PATHS) hands it at each batch:
+
+        python3 -c "import chip_smoke as c; c.time_variants(['v.cu'])"
+    """
+    import ctypes
+    import types
+
+    from ntsc_crt_tpu_torch.models import pipeline, systems
+    from ntsc_crt_tpu_torch.ops.kernels import build, probe
+    dev = torch.device("cuda", 0)
+    print(card_line(), flush=True)
+    lib = build.library()
+    set_rates(probe.report())
+    out = build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    sos = [out / f"{Path(src).stem}.so" for src in sources]
+    procs = [subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-shared",
+                               "-I", str(build.SRC_DIR), "-o", str(so),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, so in zip(sources, sos)]
+    rows = {}
+    for src, so, proc in zip(sources, sos, procs):
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"{src}: nvcc failed\n{log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {Path(src).name}: {line.strip()}")
+        var = ctypes.CDLL(str(so))
+        entry = next(e for e in VARIANT_PATHS if hasattr(var, e))
+        fn = getattr(var, entry)
+        fn.argtypes = [build._CTYPES[k] for k in build._SIGNATURES[entry]]
+        fn.restype = ctypes.c_int
+        name, preset, kw = VARIANT_PATHS[entry]
+        cfg = getattr(systems, preset)
+        for B in batches:
+            a, k = capture_kernel_inputs(pipeline, cfg, B, (name,), dev,
+                                         kw)[name]
+            build._lib = types.SimpleNamespace(**{entry: fn})
+            try:
+                check_kernel(name, f"{path_label(cfg, kw)}, {Path(src).name}",
+                             B, a, k, rows)
+            finally:
+                build._lib = lib
 
 
 # --- goldens ------------------------------------------------------------------

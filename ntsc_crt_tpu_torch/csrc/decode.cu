@@ -1,13 +1,11 @@
 // K2 decode_rows: per-line sample alignment + Y/I/Q demodulation + EQ + lerp
 // scan conversion + YIQ->RGB + contrast + clamp, one (frame, line) row per
-// lane; and bloom_line_width, the beam-energy EMA that sizes each bloom
-// line.
+// lane.
 //
 // Replaces: ntsc_crt_tpu/ops/pallas/decode_fused.py::decode_fused_rows
 // (kernel body _make_kernel) in all its modes — the 3-band EQ (_eq_chain),
 // the convolution EQ (coefs=("conv", taps), _fir_chain) and the bloom scan
-// conversion (bloom_dx/bloom_lidx).  bloom_line_width replaces the lax.scan
-// of ntsc_crt_tpu/models/demodulate.py:880-887, which has no Pallas form.
+// conversion (bloom_dx/bloom_lidx).
 //
 // Per sample t a lane takes sig[shift + t] of its rolled field rows (line l
 // continues into line l+1, the reference's flat reads, crt_core.c:538-543),
@@ -360,36 +358,6 @@ int dispatch_bloom(bool bloom, Args&& args, const typename Eq::Coefs* c) {
                  : args(launch<CC, Eq, false>, c);
 }
 
-// C's truncating a / d, made total as XLA defines it: d == 0 gives -1 and
-// INT_MIN / -1 gives INT_MIN
-__device__ __forceinline__ int cdiv32(int a, int d) {
-    if (d == 0) return -1;
-    if (d == -1) return sub32(0, a);
-    return a / d;
-}
-
-// prev_e = prev_e*123/128 + ((max_e>>1) - s) << 10 / max_e per line, from
-// 16384/8 (crt_core.c:512-520): a serial chain along the lines, one thread
-// per frame.  The division by max_e is off the chain; the chain itself is
-// a multiply, the truncating /128 and an add per line.
-__global__ void bloom_line_width_kernel(const int* __restrict__ sums,
-                                        const int* __restrict__ max_e,
-                                        int* __restrict__ prev_e, int B,
-                                        int L) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const int me = max_e[b];
-    const int half = me >> 1;
-    const int* s = sums + (long long)b * L;
-    int* dst = prev_e + (long long)b * L;
-    int e = 16384 / 8;
-    for (int l = 0; l < L; ++l) {
-        const int drive = cdiv32((int)((unsigned)sub32(half, s[l]) << 10), me);
-        e = add32(cdiv32(mul32(e, 123), 128), drive);
-        dst[l] = e;
-    }
-}
-
 }  // namespace
 
 // eq: 0 = 3-band with coefs host int[15], (lf, hf, g_lo, g_mid, g_hi) for
@@ -431,16 +399,4 @@ extern "C" int ntsc_decode_rows(
         case 6: return dispatch_bloom<4, Fir<6>>(bloom, args, c);
         default: return dispatch_bloom<4, Fir<7>>(bloom, args, c);
     }
-}
-
-// sums, prev_e int32 (B, L); max_e int32 (B,)
-extern "C" int ntsc_bloom_line_width(const void* sums, const void* max_e,
-                                     void* prev_e, int B, int L,
-                                     void* stream) {
-    const int threads = 128;
-    const unsigned blocks = (unsigned)((B + threads - 1) / threads);
-    bloom_line_width_kernel<<<blocks, threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        (const int*)sums, (const int*)max_e, (int*)prev_e, B, L);
-    return (int)cudaGetLastError();
 }

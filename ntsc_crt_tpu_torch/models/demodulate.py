@@ -173,8 +173,8 @@ def _inject_noise_vhs(cfg: SystemConfig, analog_flat: torch.Tensor,
 
     # region B: the serial march (K5); region C's entry state is one more
     # step from the last entry
-    entB = vhs.vhs_region_b_entries(stA, n_steps=nB, H=H)   # (nB, B)
-    stC0 = vhs.step(lcg.u32(entB[-1]), nB - 1, H)
+    entB = vhs.vhs_region_b_entries(stA, n_steps=nB, H=H)   # (B, nB)
+    stC0 = vhs.step(lcg.u32(entB[:, -1]), nB - 1, H)
 
     # region C: 3 calls a sample, closed form
     entC = (lcg.mul_u32(tab["a3"][None], stC0[:, None])
@@ -183,7 +183,7 @@ def _inject_noise_vhs(cfg: SystemConfig, analog_flat: torch.Tensor,
                           + tab["closeC"][1])
 
     # regions B+C: every draw from the entry states, in parallel
-    ent = torch.cat([lcg.u32(entB).T, entC], dim=1)       # (B, nB + nC)
+    ent = torch.cat([lcg.u32(entB), entC], dim=1)         # (B, nB + nC)
     r1 = lcg.crt_rand_out(lcg.mul_u32(lcg.RAND_A, ent) + lcg.RAND_B)
     st2 = (lcg.mul_u32(vhs.A2, ent) + vhs.C2) & lcg.MASK32
     m1 = ((st2 >> 1) % 20).to(torch.int32)
@@ -400,8 +400,7 @@ def demodulate_core(
     # line l reads field rows l+3 and l+4 (ynudge=+3), i.e. rolled4 from row 3
     shifts, valid, bloom = xpos_l, None, {}
     if do_bloom:
-        dx_l, lidx_l, valid = _bloom_lines(cfg, rolled4[:, 3:], xpos_l,
-                                           noise, outw)
+        dx_l, lidx_l, valid = _bloom_lines(cfg, rolled4, xpos_l, noise, outw)
         shifts = xpos_l + lidx_l          # the EQ starts at scanL >> 12
         # the carrier phase at that start: tables rotated by lidx mod CC
         rot = (torch.arange(CC, device=dev) + (lidx_l % CC)[..., None]) % CC
@@ -421,25 +420,19 @@ def demodulate_core(
                          rn=rn_new, randstate=randstate)
 
 
-def _bloom_lines(cfg: SystemConfig, rolled, xpos_l, noise, outw: int):
+def _bloom_lines(cfg: SystemConfig, rolled4, xpos_l, noise, outw: int):
     """Beam-energy bloom (crt_core.c:512-532): each line's sample sum drives
-    an energy EMA (kernel bloom_line_width) that sets the drawn line's
-    width.  rolled int8 (B, L+1, H): line l's field row and the next; the
-    [xpos, xpos + AV) window spills into the next row.  Returns (dx, lidx)
-    int32 (B, L) — each line's pixel step and EQ start scanL >> 12 — and
-    valid bool (B, L, outw): the pixels inside the drawn line
-    (crt_core.c:555 loop bound)."""
-    B, L1, H = rolled.shape
-    L, AV = L1 - 1, cfg.av_len
-    dev = rolled.device
-    iota = torch.arange(H, dtype=torch.int32, device=dev)
-    xa = xpos_l[..., None]                                # (B, L, 1)
-    in_w = (iota >= xa) & (iota < xa + AV)
-    in_spill = iota < xa + AV - H
-    sums = (torch.where(in_w, rolled[:, :L], 0).sum(2, dtype=torch.int32)
-            + torch.where(in_spill, rolled[:, 1:], 0).sum(2, dtype=torch.int32))
+    an energy EMA that sets the drawn line's width; kernel
+    bloom_line_width forms both.  rolled4 int8 (B, L+4, H): line l reads
+    field row 3 + l and, where the [xpos, xpos + AV) window spills, the
+    next.  Returns (dx, lidx) int32 (B, L) — each line's pixel step and EQ
+    start scanL >> 12 — and valid bool (B, L, outw): the pixels inside the
+    drawn line (crt_core.c:555 loop bound)."""
+    AV = cfg.av_len
+    dev = rolled4.device
     max_e = (128 + cdiv(noise, 2)) * AV                   # (B,)
-    prev_e = decode.bloom_line_width(sums, max_e.contiguous())
+    prev_e = decode.bloom_line_width(rolled4, xpos_l.contiguous(),
+                                     max_e.contiguous(), row0=3, av_len=AV)
     line_w = (AV * 112 // 128) + (prev_e >> 9)
     dx = (line_w << 12) // outw
     scan_l = ((AV // 2) - (line_w >> 1) + 8) << 12

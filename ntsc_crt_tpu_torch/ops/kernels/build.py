@@ -34,7 +34,7 @@ _SIGNATURES = {
     "ntsc_encode_rows": "ppppppp" + "i" * 11 + "p",
     "ntsc_hsync_chase": "pppp" + "i" * 7 + "p",
     "ntsc_decode_rows": "p" * 10 + "i" * 10 + "p",
-    "ntsc_bloom_line_width": "ppp" + "ii" + "p",
+    "ntsc_bloom_line_width": "pppp" + "i" * 6 + "p",
     "ntsc_place_rows_uniform": "pppp" + "i" * 7 + "p",
     "ntsc_ccf_ema": "pppppp" + "i" * 5 + "p",
     "ntsc_vhs_region_b_entries": "pp" + "i" * 3 + "p",

@@ -1,4 +1,5 @@
-"""K2 ``decode_rows``, the per-line decode, and ``bloom_line_width``.
+"""K2 ``decode_rows``, the per-line decode, and ``bloom_line_width``, the
+bloom build's line energy.
 
 Per (frame, line) row: sig[t] = concat(rows[b, row0 + l], rows[b, row0 + l
 + 1])[shift + t] (the reference's flat `sig[pos + i]` reads,
@@ -20,10 +21,11 @@ writes out[AV_LEN - 1].  Pixels past the drawn line are masked later, in
 row placement.
 
 Replaces ``ntsc_crt_tpu/ops/pallas/decode_fused.py::decode_fused_rows`` in
-all three modes; ``bloom_line_width`` replaces the lax.scan of
-``ntsc_crt_tpu/models/demodulate.py:880-887``.  A CPU tensor runs the plain
-torch version below (the portable decode of ``models/demodulate.py:983-1086``);
-a CUDA tensor launches csrc/decode.cu.
+all three modes; ``bloom_line_width`` replaces the line sums and the
+lax.scan of ``ntsc_crt_tpu/models/demodulate.py:869-887``.  A CPU tensor
+runs the plain torch versions below (the portable decode of
+``models/demodulate.py:983-1086``); a CUDA tensor launches csrc/decode.cu
+(K2) or csrc/bloom.cu (``bloom_line_width``).
 """
 
 from __future__ import annotations
@@ -217,24 +219,40 @@ def bloom_steps(rng: np.random.Generator, B: int, L: int, av_len: int,
                 bloom_lidx=lidx.astype(np.int32))
 
 
-def bloom_line_width(sums: torch.Tensor, max_e: torch.Tensor) -> torch.Tensor:
-    """The beam-energy EMA of the bloom build (crt_core.c:512-520):
-    prev_e = prev_e*123/128 + (((max_e >> 1) - s) << 10) / max_e per line,
-    from 16384/8, C truncating divisions in wrapping int32.  sums int32
-    (B, L), each line's sample sum; max_e int32 (B,).  Returns prev_e int32
-    (B, L).  A zero max_e divides to -1, as XLA defines it."""
-    if sums.device.type == "cpu":
-        return bloom_line_width_plain(sums, max_e)
+def bloom_line_width(rows: torch.Tensor, xpos_l: torch.Tensor,
+                     max_e: torch.Tensor, *, row0: int,
+                     av_len: int) -> torch.Tensor:
+    """The beam-energy EMA of the bloom build with the line sums that drive
+    it (crt_core.c:512-520).  Line l's sum s is the sum of field row
+    row0 + l over [xpos, xpos + av_len) clipped to the row, plus row
+    row0 + l + 1 over [0, xpos + av_len - H) (the spill); then prev_e =
+    prev_e*123/128 + (((max_e >> 1) - s) << 10) / max_e per line, from
+    16384/8, C truncating divisions in wrapping int32.  rows int8 (B, NR,
+    H), NR >= row0 + L + 1; xpos_l int32 (B, L); max_e int32 (B,).  Returns
+    prev_e int32 (B, L).  A zero max_e divides to -1, as XLA defines it.
+    A CUDA tensor launches csrc/bloom.cu."""
+    if rows.device.type == "cpu":
+        return bloom_line_width_plain(rows, xpos_l, max_e, row0=row0,
+                                      av_len=av_len)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
     global LINE_WIDTH_LAUNCHES
-    dev = sums.device
-    B, L = sums.shape
-    build.check("sums", sums, torch.int32, (B, L), dev)
+    dev = rows.device
+    B, NR, H = rows.shape
+    L = xpos_l.shape[-1]
+    build.check("rows", rows, torch.int8, (B, NR, H), dev)
+    build.check("xpos_l", xpos_l, torch.int32, (B, L), dev)
     build.check("max_e", max_e, torch.int32, (B,), dev)
+    if not (B >= 1 and L >= 1 and H >= 1 and 0 <= row0
+            and NR >= row0 + L + 1):
+        raise ValueError(f"bloom_line_width: bad sizes B={B} L={L} NR={NR} "
+                         f"H={H} row0={row0}")
+    if rows.data_ptr() % 16:
+        raise ValueError("bloom_line_width: rows must be 16-byte aligned")
     out = torch.empty((B, L), dtype=torch.int32, device=dev)
-    build.launch("ntsc_bloom_line_width", sums.data_ptr(), max_e.data_ptr(),
-                 out.data_ptr(), B, L, build.stream(dev))
+    build.launch("ntsc_bloom_line_width", rows.data_ptr(), xpos_l.data_ptr(),
+                 max_e.data_ptr(), out.data_ptr(), B, L, NR, H, row0, av_len,
+                 build.stream(dev))
     LINE_WIDTH_LAUNCHES += 1
     return out
 
@@ -246,9 +264,8 @@ def _cdiv_total(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return torch.where(d == 0, -1, torch.where(d == -1, -a, q))
 
 
-def bloom_line_width_plain(sums: torch.Tensor,
-                           max_e: torch.Tensor) -> torch.Tensor:
-    """The same chain as a torch loop over the lines."""
+def bloom_ema_plain(sums: torch.Tensor, max_e: torch.Tensor) -> torch.Tensor:
+    """The EMA chain from the line sums, a torch loop over the lines."""
     drive = _cdiv_total(((max_e[:, None] >> 1) - sums) << 10,
                         max_e[:, None].expand_as(sums))
     e = torch.full_like(max_e, 16384 // 8)
@@ -257,3 +274,21 @@ def bloom_line_width_plain(sums: torch.Tensor,
         e = cdiv(e * 123, 128) + drive[:, l]
         out[:, l] = e
     return out
+
+
+def bloom_line_width_plain(rows: torch.Tensor, xpos_l: torch.Tensor,
+                           max_e: torch.Tensor, *, row0: int,
+                           av_len: int) -> torch.Tensor:
+    """bloom_line_width in plain torch: each line's sum by two masked passes
+    over the rows, as the JAX decoder forms its s_sum (demodulate.py:
+    869-878), then the chain."""
+    L, H = xpos_l.shape[-1], rows.shape[-1]
+    iota = torch.arange(H, dtype=torch.int32, device=rows.device)
+    xa = xpos_l[..., None]                                # (B, L, 1)
+    in_w = (iota >= xa) & (iota < xa + av_len)
+    in_spill = iota < xa + av_len - H
+    sums = (torch.where(in_w, rows[:, row0:row0 + L], 0).sum(
+                2, dtype=torch.int32)
+            + torch.where(in_spill, rows[:, row0 + 1:row0 + L + 1], 0).sum(
+                2, dtype=torch.int32))
+    return bloom_ema_plain(sums, max_e)

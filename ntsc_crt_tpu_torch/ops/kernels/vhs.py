@@ -6,10 +6,12 @@ every step t emits st and moves to st2 = st*A^2 + C2 (two crt_rand calls)
 or, when m1*H + t > 19H - 1 with m1 = (st2 >> 1) % 20, to st3 = st*A^3 + C3
 (three calls) — crt_core.c:343-357 with C's && short circuit.
 
-Replaces ``ntsc_crt_tpu/ops/pallas/vhs_scan.py::vhs_region_b_entries`` and
-keeps its (n_steps, B) entry-state layout; states are int32 bit patterns
-where the JAX function takes and gives uint32.  A CPU tensor runs the plain
-torch loop below; a CUDA tensor launches csrc/vhs.cu.
+Replaces ``ntsc_crt_tpu/ops/pallas/vhs_scan.py::vhs_region_b_entries``.
+The entry states come as (B, n_steps), one entry's steps contiguous (the
+JAX function gives (n_steps, B)); states are int32 bit patterns where the
+JAX function takes and gives uint32.  A CPU tensor runs the plain torch
+loop below; a CUDA tensor launches csrc/vhs.cu, which walks each entry's
+LCG positions with one warp.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ def step(st: torch.Tensor, t: int, H: int) -> torch.Tensor:
 
 def vhs_region_b_entries(st0: torch.Tensor, *, n_steps: int,
                          H: int) -> torch.Tensor:
-    """st0 int32 (B,) bit patterns.  Returns the int32 (n_steps, B) entry
+    """st0 int32 (B,) bit patterns.  Returns the int32 (B, n_steps) entry
     state of every step."""
     if st0.device.type == "cpu":
         return vhs_region_b_entries_plain(st0, n_steps=n_steps, H=H)
@@ -51,7 +53,7 @@ def vhs_region_b_entries(st0: torch.Tensor, *, n_steps: int,
             and 20 * H + n_steps < 2**31):
         raise ValueError(f"vhs_region_b_entries: bad sizes B={B} "
                          f"n_steps={n_steps} H={H}")
-    out = torch.empty((n_steps, B), dtype=torch.int32, device=dev)
+    out = torch.empty((B, n_steps), dtype=torch.int32, device=dev)
     build.launch("ntsc_vhs_region_b_entries", st0.data_ptr(), out.data_ptr(),
                  B, n_steps, H, build.stream(dev))
     LAUNCHES += 1
@@ -61,9 +63,9 @@ def vhs_region_b_entries(st0: torch.Tensor, *, n_steps: int,
 def vhs_region_b_entries_plain(st0, *, n_steps: int, H: int) -> torch.Tensor:
     """The same march in plain torch, one vectorised step at a time."""
     st = lcg.u32(st0)
-    out = torch.empty((n_steps,) + tuple(st.shape), dtype=torch.int64,
+    out = torch.empty(tuple(st.shape) + (n_steps,), dtype=torch.int64,
                       device=st.device)
     for t in range(n_steps):
-        out[t] = st
+        out[..., t] = st
         st = step(st, t, H)
     return lcg.to_i32(out)

@@ -447,6 +447,12 @@ def k5_seeds(seed, B):
     return st.astype(np.uint32)
 
 
+# (H, n_steps): one band a step, bands cut short by 5 steps and run 9 steps
+# past the last (where every step takes three calls)
+K5_EDGES = ((1, 19), (7, 19 * 7), (7, 19 * 7 - 5), (7, 19 * 7 + 9),
+            (40, 19 * 40), (40, 19 * 40 - 5), (40, 19 * 40 + 9))
+
+
 @pytest.mark.parametrize("B", [1, 5])
 def test_k5_plain_matches_jax_kernel(B):
     import jax.numpy as jnp
@@ -456,14 +462,54 @@ def test_k5_plain_matches_jax_kernel(B):
                                    n_steps=19 * VHS_H, H=VHS_H)
     want = vhs_scan.vhs_region_b_entries(jnp.asarray(st0), n_steps=19 * VHS_H,
                                          H=VHS_H, interpret=True)
-    same(got, np.asarray(want).view(np.int32))
+    same(got, np.asarray(want).view(np.int32).T)
+
+
+@pytest.mark.parametrize("H,n_steps", K5_EDGES)
+def test_k5_plain_matches_jax_kernel_at_edges(H, n_steps):
+    """Small H, the last band cut short and steps past 19H, from the seeds
+    0 and 2**32 - 1 among others."""
+    import jax.numpy as jnp
+    from ntsc_crt_tpu.ops.pallas import vhs_scan
+    st0 = k5_seeds(H, 4)
+    got = vhs.vhs_region_b_entries(torch.as_tensor(st0.view(np.int32)),
+                                   n_steps=n_steps, H=H)
+    want = vhs_scan.vhs_region_b_entries(jnp.asarray(st0), n_steps=n_steps,
+                                         H=H, interpret=True)
+    same(got, np.asarray(want).view(np.int32).T)
+
+
+@pytest.mark.parametrize("H,n_steps", [(40, 19 * 40 + 9), (7, 19 * 7 - 5),
+                                       (1, 25)])
+def test_k5_entries_lie_on_the_lcg_orbit(H, n_steps):
+    """The identity the kernel's walk rests on: step t enters at x_{p_t} =
+    LCG^{p_t}(st0), with p_0 = 0 and p_{t+1} = p_t + 2 + [(x_{p_t + 2} >> 1)
+    % 20 >= 19 - t // H] (always 3 from t = 19H on)."""
+    st0 = k5_seeds(n_steps, 4).astype(np.uint64)
+    x = [st0]                                   # x_p for every position p
+    for _ in range(3 * n_steps + 3):
+        x.append((x[-1] * 1103515245 + 12345) & 0xFFFFFFFF)
+    x = np.stack(x)                             # (positions, B)
+    cols = np.arange(st0.size)
+    p = np.zeros(st0.size, np.int64)
+    want = np.empty((st0.size, n_steps), np.uint64)
+    for t in range(n_steps):
+        want[:, t] = x[p, cols]
+        m1 = (x[p + 2, cols] >> 1) % 20
+        p = p + 2 + (m1 >= max(19 - t // H, 0))
+    got = vhs.vhs_region_b_entries(
+        torch.as_tensor(st0.astype(np.uint32).view(np.int32)),
+        n_steps=n_steps, H=H)
+    same(got, want.astype(np.uint32).view(np.int32))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [1, 64])
-def test_k5_kernel_matches_plain(cuda, B):
+@pytest.mark.parametrize("B", [1, 5, 64])
+@pytest.mark.parametrize("case", [(VHS_H, 19 * VHS_H)] + list(K5_EDGES))
+def test_k5_kernel_matches_plain(cuda, case, B):
+    H, n_steps = case
     st0 = torch.as_tensor(k5_seeds(B + 1, B).view(np.int32))
-    kw = dict(n_steps=19 * VHS_H, H=VHS_H)
+    kw = dict(n_steps=n_steps, H=H)
     want = vhs.vhs_region_b_entries(st0, **kw)
     n = vhs.LAUNCHES
     same(vhs.vhs_region_b_entries(st0.to(cuda), **kw), want)
@@ -571,7 +617,8 @@ def test_non_cpu_tensors_never_take_the_plain_version(name):
             **x, coefs=("conv", 7), **k2),
         "decode_rows_bloom": lambda x: decode.decode_rows(
             **x, coefs=dem._eq_coefs(NTSC), **k2),
-        "bloom_line_width": lambda x: decode.bloom_line_width(**x),
+        "bloom_line_width": lambda x: decode.bloom_line_width(
+            **x, row0=0, av_len=5),
         "place_rows_uniform": lambda x: place.place_rows_uniform(
             **x, blend=True, scanlines=1, ratio=2, fp=1),
         "iir_lowpass_rows": lambda x: rowfilters.iir_lowpass_rows(
@@ -591,7 +638,8 @@ def test_non_cpu_tensors_never_take_the_plain_version(name):
          "decode_rows_conv": lambda: k2_inputs(0, B=1, L=4, H=160, cc=4),
          "decode_rows_bloom": k2_bloom_inputs,
          "bloom_line_width": lambda: dict(
-             sums=np.zeros((2, 8), np.int32), max_e=np.ones(2, np.int32)),
+             rows=np.zeros((2, 9, 16), np.int8),
+             xpos_l=np.zeros((2, 8), np.int32), max_e=np.ones(2, np.int32)),
          "place_rows_uniform": lambda: dict(
              rgb=np.zeros((2, 4, 8, 3), np.uint8),
              old=np.zeros((2, 8, 8, 3), np.uint8),

@@ -5,11 +5,12 @@ The variants are the reference's compile-time builds: the convolution EQ
 (do_vsync / do_hsync False) and the NTSC_RAINBOW preset.  Live steps compare
 every state leaf with the JAX step; the golden tags `NTSC_bloom` and
 `NTSC_conv7` replay through the port; the plain versions of K2's conv and
-bloom modes, of bloom_line_width and of K6 place_rows_uniform are held
-against the Pallas kernels (interpret mode) and the JAX functions they
-replace.  The tests marked `gpu` hold each CUDA kernel against its plain
-version on the card and skip without one.  Every value is an integer:
-every comparison is exact (0 LSB).
+bloom modes, of bloom_line_width (the line sums and the energy chain) and
+of K6 place_rows_uniform are held against the Pallas kernels (interpret
+mode) and the JAX functions and expressions they replace.  The tests
+marked `gpu` hold each CUDA kernel against its plain version on the card
+and skip without one.  Every value is an integer: every comparison is
+exact (0 LSB).
 
 JAX is imported inside the tests that use it, so the `gpu` tests also run
 on a machine without JAX:
@@ -247,7 +248,8 @@ def line_sums(seed, B, L):
 
 
 def test_bloom_line_width_plain_matches_jax_chain():
-    """The JAX decoder's prev_e chain (demodulate.py:880-887), scanned."""
+    """The JAX decoder's prev_e chain (demodulate.py:880-887), scanned, from
+    the same line sums."""
     import jax.numpy as jnp
     from jax import lax
     from ntsc_crt_tpu.ops.fixedpoint import cdiv as jcdiv
@@ -260,22 +262,81 @@ def test_bloom_line_width_plain_matches_jax_chain():
 
     _, want = lax.scan(bloom_step, jnp.full((4,), 16384 // 8, jnp.int32),
                        jnp.asarray(sums).T)
-    same(decode.bloom_line_width(torch.as_tensor(sums),
-                                 torch.as_tensor(max_e)), np.asarray(want).T)
+    same(decode.bloom_ema_plain(torch.as_tensor(sums),
+                                torch.as_tensor(max_e)), np.asarray(want).T)
+
+
+# where a line's [xpos, xpos + AV) window lies: inside its row, starting
+# below 0, spilling into the next row, reaching past it (xpos + AV >= 2H),
+# from any int32 (xpos + AV wraps)
+XPOS_KINDS = ("inside", "below 0", "spill", "past 2H", "any")
+
+
+def bloom_inputs(seed, B, L, H, AV, kind, row0=3, extra=0):
+    """rows int8 (B, row0 + L + 1 + extra, H), xpos int32 (B, L) of one
+    kind (or of every kind, "mixed"), max_e int32 (B,) with the edges 0, -1
+    and 96256 (noise 0 at NTSC's AV)."""
+    rng = np.random.default_rng(seed)
+    ranges = {"inside": (0, H - AV + 1), "below 0": (-AV - 5, 0),
+              "spill": (H - AV, H + 5), "past 2H": (2 * H - AV, 3 * H),
+              "any": (-2**31, 2**31)}
+    xs = [rng.integers(*ranges[k], (B, L)) for k in XPOS_KINDS]
+    xpos = (xs[XPOS_KINDS.index(kind)] if kind != "mixed" else
+            np.take_along_axis(np.stack(xs), rng.integers(0, 5, (1, B, L)),
+                               0)[0])
+    max_e = rng.integers(-2**31, 2**31, B)
+    max_e[:3] = [0, -1, 96256][:B]
+    return dict(
+        rows=rng.integers(-128, 128, (B, row0 + L + 1 + extra, H),
+                          dtype=np.int8),
+        xpos_l=xpos.astype(np.int32), max_e=max_e.astype(np.int32))
+
+
+@pytest.mark.parametrize("kind", XPOS_KINDS)
+def test_bloom_line_width_plain_matches_jax(kind):
+    """Sums and chain against the JAX decoder's expressions
+    (demodulate.py:869-887) on the same rows: rolled = rows from row 3, a
+    line's window in its row and its spill into the next."""
+    import jax.numpy as jnp
+    from jax import lax
+    from ntsc_crt_tpu.ops.fixedpoint import cdiv as jcdiv
+    AV, H, L, B = NTSC.av_len, NTSC.hres, 9, 4
+    x = bloom_inputs(1, B, L, H, AV, kind)
+    rolled = jnp.asarray(x["rows"])[:, 3:]
+    me = jnp.asarray(x["max_e"])
+    iota_h = jnp.arange(H, dtype=jnp.int32)
+    xa = jnp.asarray(x["xpos_l"])[..., None]
+    in_w = (iota_h >= xa) & (iota_h < xa + AV)
+    in_spill = iota_h < (xa + AV - H)
+    s_sum = (jnp.sum(jnp.where(in_w, rolled[:, :L].astype(jnp.int32), 0),
+                     axis=2)
+             + jnp.sum(jnp.where(in_spill, rolled[:, 1:].astype(jnp.int32),
+                                 0), axis=2))
+
+    def bloom_step(prev_e, s_l):
+        prev_e = jcdiv(prev_e * 123, 128) + jcdiv(((me >> 1) - s_l) << 10, me)
+        return prev_e, prev_e
+
+    _, want = lax.scan(bloom_step, jnp.full((B,), 16384 // 8, jnp.int32),
+                       s_sum.T)
+    same(decode.bloom_line_width(**t(x), row0=3, av_len=AV),
+         np.asarray(want).T, kind)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [1, 64])
-def test_bloom_line_width_kernel_matches_plain(cuda, B):
-    rng = np.random.default_rng(B)
-    sums = rng.integers(-2**31, 2**31, (B, NTSC.lines)).astype(np.int32)
-    max_e = rng.integers(-2**31, 2**31, B).astype(np.int32)
-    max_e[:3] = [0, -1, 96256][:B]
-    want = decode.bloom_line_width(torch.as_tensor(sums),
-                                   torch.as_tensor(max_e))
+@pytest.mark.parametrize("B", [1, 5, 64])
+@pytest.mark.parametrize("shape", ["ntsc", "ragged"])
+@pytest.mark.parametrize("kind", XPOS_KINDS + ("mixed",))
+def test_bloom_line_width_kernel_matches_plain(cuda, kind, shape, B):
+    """NTSC's rows (rolled4: L + 4 rows, row0 3), or small odd ones whose
+    chunks straddle rows and the tensor's end and whose L is past the
+    kernel's 256-line pass."""
+    L, H, AV, row0, extra = ((NTSC.lines, NTSC.hres, NTSC.av_len, 3, 3)
+                             if shape == "ntsc" else (300, 61, 50, 1, 0))
+    x = bloom_inputs(B, B, L, H, AV, kind, row0, extra)
+    want = decode.bloom_line_width(**t(x), row0=row0, av_len=AV)
     n = decode.LINE_WIDTH_LAUNCHES
-    same(decode.bloom_line_width(torch.as_tensor(sums, device=cuda),
-                                 torch.as_tensor(max_e, device=cuda)), want)
+    same(decode.bloom_line_width(**t(x, cuda), row0=row0, av_len=AV), want)
     assert decode.LINE_WIDTH_LAUNCHES == n + 1
 
 
