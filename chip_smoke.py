@@ -27,23 +27,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    step; K7 on the Y/I/Q rows of the NTSC and PV1K K1 inputs; K8 on the
    NTSC K2 inputs' Y/I/Q rows, K9 on K8's output, and the unfused chain
    against K2; K3 and K4 also at batch 512 on NTSC's and PV1K's inputs, K5
-   on NTSCVHS's and bloom_line_width (its line sums included) on the
-   bloom path's; K10's three patterns at the TPU probe's size.  Exact
-   equality; each side's time from CUDA events (the kernel's also with its
-   calls queued behind a spin kernel, see cuda_ms); each kernel's bound
-   from these inputs (see BOUNDS below).  Then K1-K5 and bloom_line_width
-   at small ragged shapes and edges (ragged_cases: partial warps and tiles,
-   shifts before 0 and past H, every K2 mode, bloom rows that restart or
-   meet the forced-zero sample; K3 estimates that wrap across H both ways,
-   windows from below 0 and past the rows, W 6, 8 and 16, at batch 5 and
-   512; K4 at m 16, VP 5, CC 5 over ragged chunks and at one line; K5 at H
-   1, 7, 40 and 910 with bands cut short and steps past 19H from the seeds
-   0 and 2**32 - 1; bloom_line_width's windows from below 0, spilling,
-   past 2H and wrapping int32, with max_e 0, -1 and 96256, rows whose
-   chunks straddle the tensor's end, L past one 256-line pass).  Then one
-   NTSC batch-1 step under torch.cuda.set_sync_debug_mode: a synchronizing
-   op inside the line scan fails the run, any outside is reported with its
-   source line.
+   on NTSCVHS's, bloom_line_width (its line sums included) on the bloom
+   path's, K7 on NTSC's and PV1K's rows and K8 on NTSC's; K10's three
+   patterns at the TPU probe's size.  Exact equality; each side's time from
+   CUDA events (the kernel's also with its calls queued behind a spin
+   kernel, see cuda_ms); each kernel's bound from these inputs (see BOUNDS
+   below); beside K7's and K8's, the time of a device copy of their rows
+   (y.copy_(x), behind the spin): the bytes' reachable floor.  Then K1-K5,
+   bloom_line_width, K7 and K8 at small ragged shapes and edges
+   (ragged_cases: partial warps and tiles, shifts before 0 and past H,
+   every K2 mode, bloom rows that restart or meet the forced-zero sample;
+   K3 estimates that wrap across H both ways, windows from below 0 and past
+   the rows, W 6, 8 and 16, at batch 5 and 512; K4 at m 16, VP 5, CC 5 over
+   ragged chunks and at one line; K5 at H 1, 7, 40 and 910 with bands cut
+   short and steps past 19H from the seeds 0 and 2**32 - 1;
+   bloom_line_width's windows from below 0, spilling, past 2H and wrapping
+   int32, with max_e 0, -1 and 96256, rows whose chunks straddle the
+   tensor's end, L past one 256-line pass; K7 and K8 at 1-65 rows and
+   1-1487 samples around their lines and ring, every T mod 4, x on and off
+   y's line grid, on full-range samples).  Then one NTSC batch-1 step under
+   torch.cuda.set_sync_debug_mode: a synchronizing op inside the line scan
+   fails the run, any outside is reported with its source line.
 5. goldens — all 11 tags of tests/fixtures/device_parity_goldens.npz (NTSC,
    NTSC_b16, NTSCVHS, NTSCVHS_b16, NTSC_bloom, NTSC_conv7, PV1K, PV1K_b16,
    NES, SNES, NESRGB) replayed through step / step_batch on the card,
@@ -548,6 +552,29 @@ def k8_args(a, k):
     return (stacked.reshape(-1, k["av_len"]).contiguous(), *cs), {}
 
 
+def k7_rows(a, k):
+    """K7's arguments from K1's (k7_args): the Y/I/Q stack as (R, destw)
+    rows, each with its channel's coefficient."""
+    yiq, c = k7_args(a, k)
+    x = yiq.reshape(-1, yiq.shape[-1]).contiguous()
+    return (x, c.repeat(x.shape[0] // 3)), {}
+
+
+# kernels that no path hands arguments of its own: name -> (the kernel whose
+# captured arguments they are derived from, the derivation)
+DERIVED = {"iir_lowpass_rows": ("encode_rows", k7_rows),
+           "eq_threeband_rows": ("decode_rows", k8_args)}
+
+
+def kernel_inputs(pipeline, cfg, B, names, dev, kw):
+    """capture_kernel_inputs, with K7's and K8's arguments derived from the
+    K1 and K2 arguments of the same step (DERIVED)."""
+    src = sorted({DERIVED[n][0] if n in DERIVED else n for n in names})
+    seen = capture_kernel_inputs(pipeline, cfg, B, src, dev, kw)
+    return {n: DERIVED[n][1](*seen[DERIVED[n][0]]) if n in DERIVED
+            else seen[n] for n in names}
+
+
 def k9_args(eqd, a, k):
     """K9's rows from K8's output and K2's arguments: oy = eq << 4, oi/oq =
     eq >> 3 (crt_core.c:540), (B * L, av_len) each."""
@@ -581,6 +608,10 @@ def check_kernel(name, label, B, a, k, rows):
     chain = "" if chain_ms is None else f", chain {chain_ms:.4f} ms"
     if old_ms is not None:
         chain += f" (the parent design's {old_ms:.4f} ms)"
+    if name in DERIVED:   # the row filters: a device copy of the same bytes
+        buf = torch.empty_like(a[0])
+        copy_ms = cuda_ms(lambda: buf.copy_(a[0]), 20, spin=True)
+        chain += f", copy floor {copy_ms:.4f} ms"
     print(f"kernel {name} batch {B} ({label}) shapes "
           f"{[tuple(g.shape) for g in got_t]}: {ms:.4f} ms (behind a spin "
           f"{spin_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
@@ -614,10 +645,8 @@ def phase_kernels(pipeline, systems, dev):
             got = {n: check_kernel(n, label, B, *seen[n], rows)
                    for n in names}
             if "encode_rows" in names and cfg.do_bandlimiting:
-                yiq, c = k7_args(*seen["encode_rows"])
-                x = yiq.reshape(-1, yiq.shape[-1]).contiguous()
                 check_kernel("iir_lowpass_rows", label, B,
-                             (x, c.repeat(x.shape[0] // 3)), {}, rows)
+                             *k7_rows(*seen["encode_rows"]), rows)
             if "decode_rows" in names and cfg.cc_samples == 4:
                 a, k = seen["decode_rows"]
                 eqd = check_kernel("eq_threeband_rows", label, B,
@@ -640,16 +669,19 @@ def phase_kernels(pipeline, systems, dev):
 
 def phase_scan_kernels(pipeline, systems, dev, batches, rows):
     """K3 and K4 on the inputs NTSC's and PV1K's line scans hand them, K5 on
-    NTSCVHS's noise inputs and bloom_line_width on the bloom path's, each
-    against its plain version at each batch of `batches`, timed and bounded
-    as in phase_kernels."""
+    NTSCVHS's noise inputs, bloom_line_width on the bloom path's, K7 on the
+    Y/I/Q rows of NTSC's and PV1K's K1 inputs and K8 on NTSC's K2 inputs'
+    (DERIVED), each against its plain version at each batch of `batches`,
+    timed and bounded as in phase_kernels."""
     groups = ((systems.NTSC, ("hsync_chase", "ccf_ema"), {}),
               (systems.PV1K, ("hsync_chase", "ccf_ema"), {}),
               (systems.NTSCVHS, ("vhs_region_b_entries",), VHS_KW),
-              (systems.NTSC, ("bloom_line_width",), BLOOM))
+              (systems.NTSC, ("bloom_line_width",), BLOOM),
+              (systems.NTSC, ("iir_lowpass_rows", "eq_threeband_rows"), {}),
+              (systems.PV1K, ("iir_lowpass_rows",), {}))
     for cfg, names, kw in groups:
         for B in batches:
-            seen = capture_kernel_inputs(pipeline, cfg, B, names, dev, kw)
+            seen = kernel_inputs(pipeline, cfg, B, names, dev, kw)
             for n in names:
                 check_kernel(n, path_label(cfg, kw), B, *seen[n], rows)
 
@@ -675,6 +707,18 @@ K5_EDGES = ((1, 19), (7, 19 * 7 - 5), (7, 19 * 7 + 9), (40, 19 * 40),
 # past the kernel's 256-line pass, windows wider than a row, one-byte rows
 LINE_EDGES = ((240, 910, 753, 3, 3), (300, 61, 50, 1, 0), (7, 13, 30, 0, 0),
               (9, 1, 3, 0, 0))
+# (R, T) of K7/K8 inputs at the edges of csrc/rowfilters.cu's ring (32 rows a
+# warp, a 128-byte line of each a tile, 4 tiles a ring; 64-sample tiles in a
+# design tried): one row, a warp short, full, one past, and two full warps
+# and one past (a warp's first row shares a line with the last row of the
+# warp before); a sample, short of, at and past one line, two, a ring and one
+# past, NTSC's and PV1K's rows; every T mod 4 (tests/test_torch_kernels.py
+# ROW_EDGES picks from this grid).  ROW_OFF_GRID: x one word off y's line
+# grid, the kernels' 4-byte copy path.
+ROW_EDGES = tuple((R, T) for R in (1, 31, 32, 33, 65)
+                  for T in (1, 2, 31, 32, 33, 34, 63, 64, 65, 129, 257, 753,
+                            1487))
+ROW_OFF_GRID = ((1, 33), (33, 34), (65, 753), (70, 1487))
 
 
 def ragged_cases(dev):
@@ -687,8 +731,10 @@ def ragged_cases(dev):
     (K3_EDGES, K4_EDGES), K5 at small H, bands cut short and steps past 19H
     from the seeds 0 and 2**32 - 1 (K5_EDGES), bloom_line_width on windows
     from below 0, spilling, past 2H and wrapping, with max_e 0, -1 and
-    96256 (LINE_EDGES); the last four at batch 5 and 512.  Yields (kernel,
-    label, args, kwargs)."""
+    96256 (LINE_EDGES); the last four at batch 5 and 512; K7 and K8 at the
+    edges of their ring (ROW_EDGES) and with x off y's line grid
+    (ROW_OFF_GRID), on full-range int32 samples, whose sums wrap.  Yields
+    (kernel, label, args, kwargs)."""
     from ntsc_crt_tpu_torch.models import demodulate as dem
     from ntsc_crt_tpu_torch.models import systems
     from ntsc_crt_tpu_torch.ops import filters
@@ -774,10 +820,20 @@ def ragged_cases(dev):
                     t((lo + (rng.random((B, L)) * (hi - lo))).astype(
                         np.int64).astype(np.int32)),
                     t(max_e.astype(np.int32))), dict(row0=row0, av_len=av))
+    sets = np.array([tuple(c) for c in three], np.int32)
+    for R, T, off in ([(R, T, False) for R, T in ROW_EDGES]
+                      + [(R, T, True) for R, T in ROW_OFF_GRID]):
+        x = t(rng.integers(-2**31, 2**31, R * T + 1).astype(np.int32))
+        x = x[1:] if off else x[:-1]        # the wrapper's y is line-aligned
+        label = f"R {R}, T {T}" + (", x off the line grid" if off else "")
+        x = x.view(R, T)
+        yield "iir_lowpass_rows", label, (x, t(i32(0, 2048, R))), {}
+        yield ("eq_threeband_rows", label,
+               (x, *(t(v) for v in sets[rng.integers(0, 3, R)].T)), {})
 
 
 def phase_ragged(dev):
-    """K1-K5 and bloom_line_width against their plain versions on the
+    """K1-K5, bloom_line_width, K7 and K8 against their plain versions on the
     ragged_cases inputs, at 0 LSB (K2's through
     decode_rows_plain_any_shift: the shifts go below 0)."""
     from ntsc_crt_tpu_torch.ops.kernels import decode
@@ -852,21 +908,27 @@ def set_rates(rep) -> None:
 
 
 # entry point -> (kernel, preset, keywords) of the path whose inputs a
-# design variant of that kernel is timed on (time_variants)
+# design variant of that kernel is timed on (time_variants; K7's and K8's
+# derived from K1's and K2's, DERIVED)
 VARIANT_PATHS = {
     "ntsc_hsync_chase": ("hsync_chase", "NTSC", {}),
     "ntsc_ccf_ema": ("ccf_ema", "NTSC", {}),
     "ntsc_vhs_region_b_entries": ("vhs_region_b_entries", "NTSCVHS", VHS_KW),
     "ntsc_bloom_line_width": ("bloom_line_width", "NTSC", BLOOM),
+    "ntsc_iir_lowpass_rows": ("iir_lowpass_rows", "NTSC", {}),
+    "ntsc_eq_threeband_rows": ("eq_threeband_rows", "NTSC", {}),
 }
 
 
 def time_variants(sources, batches=(1, 64, MAIN_BATCH)) -> None:
     """Design runs, on the card: each CUDA source of `sources` — a copy of
-    a kernel's csrc/*.cu with its design changed and its entry point kept —
+    a kernel's csrc/*.cu with its design changed and its entry points kept —
     is built alone, launched through the package's own wrapper, held to the
     plain version at 0 LSB and timed and bounded as phase_kernels does, on
-    the inputs the kernel's path (VARIANT_PATHS) hands it at each batch:
+    the inputs the kernel's path (VARIANT_PATHS) hands it at each batch;
+    every entry point of VARIANT_PATHS that a source defines is timed (a
+    copy of csrc/rowfilters.cu: K7 and K8).  The inputs of each kernel and
+    batch are captured once and shared by the variants:
 
         python3 -c "import chip_smoke as c; c.time_variants(['v.cu'])"
     """
@@ -887,7 +949,7 @@ def time_variants(sources, batches=(1, 64, MAIN_BATCH)) -> None:
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, so in zip(sources, sos)]
-    rows = {}
+    variants = []   # (source name, {entry point: function})
     for src, so, proc in zip(sources, sos, procs):
         log = proc.communicate()[0]
         if proc.returncode:
@@ -896,21 +958,139 @@ def time_variants(sources, batches=(1, 64, MAIN_BATCH)) -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {Path(src).name}: {line.strip()}")
         var = ctypes.CDLL(str(so))
-        entry = next(e for e in VARIANT_PATHS if hasattr(var, e))
-        fn = getattr(var, entry)
-        fn.argtypes = [build._CTYPES[k] for k in build._SIGNATURES[entry]]
-        fn.restype = ctypes.c_int
-        name, preset, kw = VARIANT_PATHS[entry]
+        fns = {e: getattr(var, e) for e in VARIANT_PATHS if hasattr(var, e)}
+        for e, fn in fns.items():
+            fn.argtypes = [build._CTYPES[k] for k in build._SIGNATURES[e]]
+            fn.restype = ctypes.c_int
+        variants.append((Path(src).name, fns))
+    rows = {}
+    for entry, (name, preset, kw) in VARIANT_PATHS.items():
+        users = [(n, fns) for n, fns in variants if entry in fns]
         cfg = getattr(systems, preset)
-        for B in batches:
-            a, k = capture_kernel_inputs(pipeline, cfg, B, (name,), dev,
-                                         kw)[name]
-            build._lib = types.SimpleNamespace(**{entry: fn})
-            try:
-                check_kernel(name, f"{path_label(cfg, kw)}, {Path(src).name}",
-                             B, a, k, rows)
-            finally:
-                build._lib = lib
+        for B in batches if users else ():
+            a, k = kernel_inputs(pipeline, cfg, B, (name,), dev, kw)[name]
+            for src, fns in users:
+                build._lib = types.SimpleNamespace(**fns)
+                try:
+                    check_kernel(name, f"{path_label(cfg, kw)}, {src}", B, a,
+                                 k, rows)
+                finally:
+                    build._lib = lib
+
+
+# An identity march through the row filters' first ring (time_row_copies):
+# each warp copies its 32 rows a tile of 32 samples at a time, 4 tiles a
+# ring, by 4-byte cp.async in and 4-byte stores out, tile k of every row at
+# the row's own sample 32k.
+ROW_COPY_CU = r"""
+#include <cuda_runtime.h>
+#include "cp_async.cuh"
+__global__ void __launch_bounds__(32) ring_copy(
+        const int* __restrict__ x, int* __restrict__ y, long long R, int T) {
+    constexpr int C = 32, S = 4;
+    __shared__ int ring[S][32][C + 1];
+    const int lane = threadIdx.x;
+    const long long row0 = (long long)blockIdx.x * 32;
+    const int nrows = (int)min(32LL, R - row0), ntiles = (T + C - 1) / C;
+    const int* src = x + row0 * T;
+    int* dst = y + row0 * T;
+    auto fill = [&](int k) {
+        const int t = k * C + lane;
+        if (k < ntiles)
+            for (int r = 0; r < 32; ++r) {
+                const bool in = t < T && r < nrows;
+                cp_async4_zfill(&ring[k % S][r][lane],
+                                in ? src + (long long)r * T + t : x, in);
+            }
+        cp_async_commit();
+    };
+    for (int k = 0; k < S - 1; ++k) fill(k);
+    for (int k = 0; k < ntiles; ++k) {
+        fill(k + S - 1);
+        cp_async_wait<S - 1>();
+        __syncwarp();
+        const int t = k * C + lane;
+        if (t < T)
+            for (int r = 0; r < nrows; ++r)
+                dst[(long long)r * T + t] = ring[k % S][r][lane];
+        __syncwarp();
+    }
+}
+extern "C" int row_copy(const void* x, void* y, int R, int T, void* st) {
+    ring_copy<<<(R + 31) / 32, 32, 0, (cudaStream_t)st>>>(
+        (const int*)x, (int*)y, R, T);
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def time_row_copies(shapes=((46080, 753), (46080, 768))) -> None:
+    """What a row segment's alignment costs, on the card, behind the spin:
+    ROW_COPY_CU's ring copy (at odd T its row segments straddle two
+    128-byte lines; at T = 768 each is one whole line) beside y.copy_(x)
+    at each (R, T); then csrc/rowfilters.cu's K7 on NTSC's batch-64 rows
+    with x, y or both one word off a 128-byte line (x off y's line grid
+    takes its 4-byte copies; y off shifts every row's lines):
+
+        python3 -c "import chip_smoke as c; c.time_row_copies()"
+    """
+    import ctypes
+
+    from ntsc_crt_tpu_torch.ops.kernels import build, probe, rowfilters
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(card, flush=True)
+    set_rates(probe.report())
+    out = build.BUILD_DIR / "row_copy"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "row_copy.cu").write_text(ROW_COPY_CU)
+    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I",
+                          str(build.SRC_DIR), "-o", str(out / "row_copy.so"),
+                          str(out / "row_copy.cu")], capture_output=True,
+                         text=True)
+    if res.returncode:
+        raise SystemExit(f"row_copy.cu: nvcc failed\n{res.stdout}{res.stderr}")
+    fn = ctypes.CDLL(str(out / "row_copy.so")).row_copy
+    fn.argtypes = [build._CTYPES[k] for k in "ppiip"]
+    stream = build.stream(dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def show(label, x, y, run, want):
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(y, want):
+            raise SystemExit(f"{label}: differs")
+        ms = cuda_ms(run, 20, spin=True)
+        print(f"{label}: {ms:.4f} ms, {2 * nbytes(x) / ms / 1e9:.3f} TB/s  "
+              f"[{card}]", flush=True)
+
+    for R, T in shapes:
+        x = torch.randint(-2**31, 2**31 - 1, (R, T), dtype=torch.int32,
+                          device=dev, generator=gen)
+        y = torch.empty_like(x)
+        show(f"y.copy_(x) {R} x {T}", x, y, lambda: y.copy_(x), x)
+        show(f"ring copy {R} x {T}", x, y,
+             lambda: fn(x.data_ptr(), y.data_ptr(), R, T, stream), x)
+    R, T = 45312, 753
+    x0 = torch.randint(-2**31, 2**31 - 1, (R, T), dtype=torch.int32,
+                       device=dev, generator=gen)
+    c = torch.randint(0, 2048, (R,), dtype=torch.int32, device=dev,
+                      generator=gen)
+    want = rowfilters.iir_lowpass_rows_plain(x0, c)
+
+    def at(off):
+        return torch.empty(R * T + 32, dtype=torch.int32,
+                           device=dev)[off:off + R * T].view(R, T)
+
+    for label, ox, oy in (("on the line grid", 0, 0),
+                          ("x one word off", 1, 0), ("y one word off", 0, 1),
+                          ("both one word off", 1, 1)):
+        x, y = at(ox), at(oy)
+        x.copy_(x0)
+        show(f"K7 {R} x {T}, {label}", x, y,
+             lambda: build.launch("ntsc_iir_lowpass_rows", x.data_ptr(),
+                                  c.data_ptr(), y.data_ptr(), R, T, stream),
+             want)
 
 
 # --- goldens ------------------------------------------------------------------

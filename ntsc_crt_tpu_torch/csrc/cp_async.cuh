@@ -21,6 +21,16 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                  : "memory");
 }
 
+// 16 bytes, or 16 zero bytes and no read when `valid` is false; both
+// addresses 16-byte aligned
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(smem)),
+                 "l"(gmem), "r"(valid ? 16 : 0)
+                 : "memory");
+}
+
 // 4 bytes, or 4 zero bytes and no read when `valid` is false; both
 // addresses 4-byte aligned
 __device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,

@@ -6,61 +6,76 @@
 // ::eq_threeband_rows (_eq_kernel: the 3-band eqf(), crt_core.c:206-233,
 // shared with K2 through eq3.cuh).  Every row has its own coefficients.
 //
-// What bounds it on the H100: each row is one dependent chain along t — 4
-// source ops a step for the IIR (sub, mul, shift, add); for the 3-band EQ
-// each pole carries its own 5-op recurrence (sub, mul, add, shift, add) and
-// the 8 poles pipeline, so its chain is 5 a step plus the 25 of the first
-// output — so a row takes at least that chain x (cycles per dependent op);
-// bytes are 8 a sample (int32 in and out).  Many rows in flight hide the
-// chain: with enough warps the card's int32 issue rate (3-band: ~50 ops a
-// sample) or its memory rate (the IIR) is the bound.
+// What bounds it on the H100: bytes, 8 a sample (int32 in and out), once
+// enough rows are in flight.  Each row is one dependent chain along t that
+// truncates on every sample, so a row cannot be split: one lane marches one
+// row.  At batch 1 (~720 rows: 23 warps, one an SM) a warp's own issue
+// bounds it: an SM sub-partition issues int32 at 16 lanes a cycle, so a
+// warp's int32 instruction takes 2 cycles, and K8's chain is ~34 of them a
+// sample.
 //
-// Design: one thread per row, the state in registers.  A thread reading its
-// own row would make a warp's 32 loads hit 32 rows (32 cache lines a
-// sample); instead each warp stages a 32-row x 32-sample tile through
-// shared memory — loaded and stored a row at a time, 128 contiguous bytes a
-// warp access — and each thread marches its row across the tile, in place.
-// For the IIR the next tile's loads are issued into registers before the
-// march, so they overlap it (PREFETCH).  The tile's row pitch is 33 ints,
-// so the march's column reads and writes hit 32 different banks.  The TPU
+// Design: one warp a block, 32 rows a warp, one lane a row, the state in
+// registers.  The warp streams its rows through a ring of RING tiles of 32
+// rows x one 128-byte line in shared memory, one commit group of cp.async
+// copies a tile; while one tile is marched the next RING - 1 are in flight,
+// and the copies hold no registers.  Row r's tile k is the line holding its
+// samples [k * LINE - o_r, (k + 1) * LINE - o_r), o_r the row start's
+// offset from its line in y: a row of odd T starts anywhere in a line, and
+// row segments that straddle two lines copied at about half the rate of
+// whole lines (PERF.md §6).  So every copy and store is whole aligned
+// 16-byte granules, 4 rows a warp instruction (where x sits off y's line
+// grid, the copies are 4-byte and zero-filled, and only the stores are
+// whole granules).  A line's samples before the row start are zeroed before
+// the march (zeros keep either filter in its reset state), those past its
+// end are marched and never stored; the tiles inside every row store
+// without a test, and the granules a row shares with a neighbour at its
+// ends are stored a sample at a time.  The march reads and writes
+// 16-byte granules of its row in place; a tile row's pitch of 36 words puts
+// each quarter warp's 8 granules on 8 distinct bank groups.  The TPU
 // kernel's (sub, LANE) row tiling, time blocks and K-step unroll exist for
-// the TPU's vector unit and are not carried over.
+// the TPU's vector unit and are not carried over.  The line-aligned tiles,
+// the 16-byte granules, the ring's depth and the untested inner stores
+// were chosen by design runs on the card (chip_smoke.time_variants); every
+// design tried and its times are in PERF.md §6.
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "cp_async.cuh"
 #include "eq3.cuh"
 #include "int32.cuh"
 
 namespace {
 
-constexpr int TILE = 32;   // rows of a warp, samples of a tile
-constexpr int WARPS = 4;   // warps of a block
-constexpr int EXP_P = 11;  // crt_ntsc.c:89
+constexpr int ROWS = 32;           // rows of a warp, one lane each
+constexpr int LINE = 32;           // samples of a 128-byte line: a tile row
+constexpr int RING = 4;            // tiles of a warp's ring
+constexpr int PITCH = LINE + 4;    // words of a tile row in shared memory
+constexpr int GRAN = LINE / 4;     // 16-byte granules of a tile row
+constexpr int STRIDE = ROWS / GRAN;  // rows between a lane's granules
+constexpr int EXP_P = 11;          // crt_ntsc.c:89
 
-// PREFETCH: load the next tile into 32 registers while this one is marched.
-// The IIR's march (4 ops a sample) is short, so it would wait on the loads;
-// the 3-band march (~50 ops a sample) hides them, and there the staging
-// registers cost more than the overlap gains, so it loads straight into
-// the tile (both measured on the H100, PERF.md).
 struct Iir {
-    static constexpr bool PREFETCH = true;
     struct Ptrs {
         const int* c;
     };
-    int c, h;
+    int c, nc, h;  // nc = -c
 
     __device__ void load(const Ptrs& p, long long row) {
         c = p.c[row];
+        nc = sub32(0, c);
         h = 0;
     }
 
+    // (s - h) * c as s * c + h * (-c): the same int32 value, with s * c off
+    // the dependent chain, which keeps one multiply-add and the shift-add
     __device__ int step(int s) {
-        h = add32(h, mul32(sub32(s, h), c) >> EXP_P);
+        h = add32(h, add32(mul32(s, c), mul32(h, nc)) >> EXP_P);
         return h;
     }
 };
 
 struct Eq3 {
-    static constexpr bool PREFETCH = false;
     struct Ptrs {
         const int *lf, *hf, *g0, *g1, *g2;
     };
@@ -75,60 +90,118 @@ struct Eq3 {
     __device__ int step(int s) { return st.step(s, c); }
 };
 
-template <class F>
-__global__ void rows_kernel(const int* __restrict__ x, int* __restrict__ y,
-                           long long R, int T, typename F::Ptrs coefs) {
-    __shared__ int tiles[WARPS][TILE][TILE + 1];
-    const int lane = threadIdx.x % TILE;
-    const int warp = threadIdx.x / TILE;
-    const long long row0 = ((long long)blockIdx.x * WARPS + warp) * TILE;
-    if (row0 >= R) return;  // the whole warp leaves together
-    const int nrows = (int)min((long long)TILE, R - row0);
-    const bool live = lane < nrows;
-    int(*tile)[TILE + 1] = tiles[warp];
-    F f;
-    if (live) f.load(coefs, row0 + lane);
-    // nx[r]: sample t0 + lane of row row0 + r, for the tile at t0
-    int nx[TILE];
-    auto fetch = [&](int t0) {
-        const int n = min(TILE, T - t0);
+// VEC: x lies on y's line grid, so the copies are whole 16-byte granules
+template <class F, bool VEC>
+__global__ void __launch_bounds__(ROWS)
+    rows_kernel(const int* __restrict__ x, int* __restrict__ y, long long R,
+                int T, typename F::Ptrs coefs) {
+    __shared__ __align__(16) int ring[RING][ROWS][PITCH];
+    const int lane = threadIdx.x;
+    const long long row0 = (long long)blockIdx.x * ROWS;
+    const int nrows = (int)min((long long)ROWS, R - row0);
+    const int* src = x + row0 * T;
+    int* dst = y + row0 * T;
+    // o_r for row r of the warp, from y's address of row 0
+    const unsigned tm = (unsigned)T % LINE;
+    const unsigned o0 = (unsigned)(reinterpret_cast<uintptr_t>(dst) / 4) % LINE;
+    auto start = [&](int r) { return (int)((o0 + (unsigned)r * tm) % LINE); };
+    const int my_o = start(lane);
+    const int omax = (int)__reduce_max_sync(0xffffffffu,
+                                            lane < nrows ? my_o : 0);
+    const int ntiles = (int)(((long long)T + omax + LINE - 1) / LINE);
+    // this lane's granule g of rows rq + STRIDE * i: o_r, and the offset of
+    // the granule's first sample in tile 0 from the row block's start
+    const int g = lane % GRAN, rq = lane / GRAN;
+    int ro[GRAN];
+    long long go[GRAN];
 #pragma unroll
-        for (int r = 0; r < TILE; ++r)
-            nx[r] = (r < nrows && lane < n) ? x[(row0 + r) * T + t0 + lane]
-                                            : 0;
+    for (int i = 0; i < GRAN; ++i) {
+        const int r = rq + STRIDE * i;
+        ro[i] = start(r);
+        go[i] = (long long)r * T - ro[i] + 4 * g;
+    }
+
+    // tile k's copies into `slot`, one commit group (an empty one past the
+    // last tile, so that the group count stays one a tile)
+    auto fill = [&](int k, int slot) {
+        if (k < ntiles) {
+            if constexpr (VEC) {
+#pragma unroll
+                for (int i = 0; i < GRAN; ++i) {
+                    // a line inside the tensor whenever it holds a sample
+                    // of its row
+                    const bool in =
+                        rq + STRIDE * i < nrows && k * LINE - ro[i] < T;
+                    cp_async16_zfill(&ring[slot][rq + STRIDE * i][4 * g],
+                                     in ? src + go[i] + k * LINE : x, in);
+                }
+            } else {  // a sample a lane, zeros outside the row
+                const int* p = src;
+                unsigned o = o0;
+#pragma unroll 4
+                for (int r = 0; r < ROWS; ++r) {
+                    const int t = k * LINE + lane - (int)o;
+                    const bool in = (unsigned)t < (unsigned)T && r < nrows;
+                    cp_async4_zfill(&ring[slot][r][lane], in ? p + t : x,
+                                    in);
+                    p += T;
+                    o = (o + tm) % LINE;
+                }
+            }
+        }
+        cp_async_commit();
     };
-    if constexpr (F::PREFETCH) fetch(0);
-    for (int t0 = 0; t0 < T; t0 += TILE) {
-        const int n = min(TILE, T - t0);
-        if constexpr (F::PREFETCH) {
 #pragma unroll
-            for (int r = 0; r < TILE; ++r) tile[r][lane] = nx[r];
-            __syncwarp();
-            // the next tile's loads fly while this one is marched
-            if (t0 + TILE < T) fetch(t0 + TILE);
+    for (int k = 0; k < RING - 1; ++k) fill(k, k);
+    F f;  // a row past R marches row R - 1's coefficients
+    f.load(coefs, min(row0 + lane, R - 1));
+
+    int s = 0;  // tile k's slot; slot s - 1 (mod RING) is free
+    for (int k = 0; k < ntiles; ++k) {
+        fill(k + RING - 1, s == 0 ? RING - 1 : s - 1);
+        cp_async_wait<RING - 1>();  // tile k has landed
+        __syncwarp();               // every lane's copies, seen by the warp
+        int(*tile)[PITCH] = ring[s];
+        if (k == 0) {  // the line before the row start: zeros
+            for (int i = 0; i < my_o; ++i) tile[lane][i] = 0;
+        }
+#pragma unroll
+        for (int q = 0; q < GRAN; ++q) {
+            int4 v = *reinterpret_cast<int4*>(&tile[lane][4 * q]);
+            v.x = f.step(v.x);
+            v.y = f.step(v.y);
+            v.z = f.step(v.z);
+            v.w = f.step(v.w);
+            *reinterpret_cast<int4*>(&tile[lane][4 * q]) = v;
+        }
+        __syncwarp();
+        if (nrows == ROWS && k >= 1 && (k + 1) * LINE <= T) {
+            // every granule of the tile inside its row: no test
+#pragma unroll
+            for (int i = 0; i < GRAN; ++i)
+                *reinterpret_cast<int4*>(dst + go[i] + k * LINE) =
+                    *reinterpret_cast<const int4*>(
+                        &tile[rq + STRIDE * i][4 * g]);
         } else {
-            if (lane < n) {
-                for (int r = 0; r < nrows; ++r)
-                    tile[r][lane] = x[(row0 + r) * T + t0 + lane];
-            }
-            __syncwarp();
-        }
-        if (live) {
-            if (n == TILE) {
 #pragma unroll
-                for (int k = 0; k < TILE; ++k)
-                    tile[lane][k] = f.step(tile[lane][k]);
-            } else {
-                for (int k = 0; k < n; ++k)
-                    tile[lane][k] = f.step(tile[lane][k]);
+            for (int i = 0; i < GRAN; ++i) {
+                const int r = rq + STRIDE * i;
+                const int4 v = *reinterpret_cast<const int4*>(&tile[r][4 * g]);
+                int* p = dst + go[i] + k * LINE;  // sample t0 of row r
+                const int t0 = k * LINE - ro[i] + 4 * g;
+                if (r >= nrows) continue;
+                if (t0 >= 0 && t0 + 4 <= T) {
+                    *reinterpret_cast<int4*>(p) = v;
+                } else {  // a granule shared with a neighbouring row
+                    if ((unsigned)t0 < (unsigned)T) p[0] = v.x;
+                    if ((unsigned)(t0 + 1) < (unsigned)T) p[1] = v.y;
+                    if ((unsigned)(t0 + 2) < (unsigned)T) p[2] = v.z;
+                    if ((unsigned)(t0 + 3) < (unsigned)T) p[3] = v.w;
+                }
             }
         }
-        __syncwarp();
-        if (lane < n) {
-            for (int r = 0; r < nrows; ++r)
-                y[(row0 + r) * T + t0 + lane] = tile[r][lane];
-        }
-        __syncwarp();
+        __syncwarp();  // the slot's reads are done before it is refilled
+        s = s == RING - 1 ? 0 : s + 1;
     }
 }
 
@@ -137,11 +210,16 @@ int launch(const void* x, void* y, int R, int T, typename F::Ptrs coefs,
            void* stream) {
     if (R < 0 || T < 0) return (int)cudaErrorInvalidValue;
     if (R == 0 || T == 0) return (int)cudaSuccess;
-    const int rows_per_block = WARPS * TILE;
-    const unsigned blocks = (unsigned)((R + rows_per_block - 1) / rows_per_block);
-    rows_kernel<F><<<blocks, WARPS * TILE, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        (const int*)x, (int*)y, R, T, coefs);
+    const unsigned blocks = (unsigned)((R + ROWS - 1) / ROWS);
+    const auto st = static_cast<cudaStream_t>(stream);
+    const bool vec = (reinterpret_cast<uintptr_t>(x) -
+                      reinterpret_cast<uintptr_t>(y)) % (4 * LINE) == 0;
+    if (vec)
+        rows_kernel<F, true><<<blocks, ROWS, 0, st>>>(
+            (const int*)x, (int*)y, R, T, coefs);
+    else
+        rows_kernel<F, false><<<blocks, ROWS, 0, st>>>(
+            (const int*)x, (int*)y, R, T, coefs);
     return (int)cudaGetLastError();
 }
 

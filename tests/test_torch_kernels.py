@@ -527,12 +527,24 @@ def row_inputs(seed, R, T, lim):
             sets[rng.integers(0, 3, R)].T)
 
 
+# (R, T) at the edges of csrc/rowfilters.cu's ring (32 rows a warp, a
+# 128-byte line of each a tile, 4 tiles a ring): a single row and a single
+# sample, a warp short, full and one past, two warps and one past, a line
+# short, full and one past, a partial ring, one line past a ring, every T
+# mod 4 (chip_smoke.py ROW_EDGES holds the full grid)
+ROW_EDGES = [(1, 1), (33, 1), (1, 2), (32, 31), (31, 32), (33, 33), (1, 34),
+             (32, 63), (33, 64), (31, 65), (33, 66), (1, 129), (32, 131),
+             (33, 257), (1, 1487), (65, 35), (65, 753)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("R,T,lim", [(3 * 236, 753, 300), (1000, 37, 1 << 30),
-                                     (31, 5, 1 << 20), (129, 1487, 300)])
+                                     (31, 5, 1 << 20), (129, 1487, 300)]
+                         + [(R, T, 1 << 31) for R, T in ROW_EDGES])
 def test_k7_k8_kernels_match_plain(cuda, R, T, lim):
     """Ragged row and sample counts (a partial warp, a partial tile), the
-    encode rows of NTSC and PV1K, and full-range inputs that wrap."""
+    encode rows of NTSC and PV1K, full-range inputs that wrap, and the ring's
+    edges (ROW_EDGES)."""
     x, c, cs = row_inputs(R + T, R, T, lim)
     t = lambda v, d="cpu": torch.as_tensor(v, device=d)  # noqa: E731
     n7, n8 = rowfilters.IIR_LAUNCHES, rowfilters.EQ_LAUNCHES
@@ -542,6 +554,36 @@ def test_k7_k8_kernels_match_plain(cuda, R, T, lim):
          rowfilters.eq_threeband_rows(t(x), *map(t, cs)))
     assert (rowfilters.IIR_LAUNCHES, rowfilters.EQ_LAUNCHES) == (n7 + 1,
                                                                  n8 + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ox,oy", [(1, 0), (0, 1), (5, 5), (0, 0)])
+@pytest.mark.parametrize("R,T", [(33, 34), (65, 753)])
+def test_k7_k8_kernels_off_the_line_grid(cuda, R, T, ox, oy):
+    """x and y at word offsets ox and oy from a 128-byte line: each row's
+    tiles follow y's lines, and x off y's line grid takes the 4-byte copies
+    (the wrappers allocate y themselves, so the entry points are called
+    directly)."""
+    from ntsc_crt_tpu_torch.ops.kernels import build
+    x, c, cs = row_inputs(R * T + ox + oy, R, T, 1 << 31)
+
+    def at(off):
+        return torch.zeros(R * T + 32, dtype=torch.int32,
+                           device=cuda)[off:off + R * T].view(R, T)
+
+    xd = at(ox)
+    xd.copy_(torch.as_tensor(x))
+    for entry, coefs, plain in (
+            ("ntsc_iir_lowpass_rows", [c], rowfilters.iir_lowpass_rows_plain),
+            ("ntsc_eq_threeband_rows", list(cs),
+             rowfilters.eq_threeband_rows_plain)):
+        yd = at(oy)
+        cd = [torch.as_tensor(np.ascontiguousarray(v), device=cuda)
+              for v in coefs]
+        build.launch(entry, xd.data_ptr(), *(v.data_ptr() for v in cd),
+                     yd.data_ptr(), R, T, build.stream(cuda))
+        torch.cuda.synchronize()
+        same(yd, plain(torch.as_tensor(x), *map(torch.as_tensor, coefs)))
 
 
 @pytest.mark.gpu

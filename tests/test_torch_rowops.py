@@ -44,7 +44,13 @@ def eq_coef_rows(rng, R):
 # --- K7 iir_lowpass_rows / K8 eq_threeband_rows --------------------------------
 
 
-@pytest.mark.parametrize("R,T,lim", [(5, 40, 300), (130, 20, 1 << 30)])
+# T mod 4 = 1, 2, 3 beside the cases' 0 (the kernel's row starts are only
+# 4-byte aligned at odd T), on full-range samples whose sums wrap
+T_MOD4 = [(3, 41, 1 << 31), (2, 42, 300), (33, 43, 1 << 20)]
+
+
+@pytest.mark.parametrize("R,T,lim", [(5, 40, 300), (130, 20, 1 << 30)]
+                         + T_MOD4)
 def test_k7_plain_matches_jax_kernel_and_scan(R, T, lim):
     rng = np.random.default_rng(R + T)
     x = rng.integers(-lim, lim, (R, T)).astype(np.int32)
@@ -55,7 +61,8 @@ def test_k7_plain_matches_jax_kernel_and_scan(R, T, lim):
     same(got, jfilters.iir_lowpass(jnp.asarray(x), jnp.asarray(c)))
 
 
-@pytest.mark.parametrize("R,T,lim", [(6, 40, 300), (130, 20, 1 << 20)])
+@pytest.mark.parametrize("R,T,lim", [(6, 40, 300), (130, 20, 1 << 20)]
+                         + T_MOD4)
 def test_k8_plain_matches_jax_kernel_and_scan(R, T, lim):
     rng = np.random.default_rng(R * T)
     x = rng.integers(-lim, lim, (R, T)).astype(np.int32)
