@@ -45,9 +45,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    int32, with max_e 0, -1 and 96256, rows whose chunks straddle the
    tensor's end, L past one 256-line pass; K7 and K8 at 1-65 rows and
    1-1487 samples around their lines and ring, every T mod 4, x on and off
-   y's line grid, on full-range samples).  Then one NTSC batch-1 step under
-   torch.cuda.set_sync_debug_mode: a synchronizing op inside the line scan
-   fails the run, any outside is reported with its source line.
+   y's line grid, on full-range samples).  Then one NTSC batch-1 step and
+   one video_exact call of 4 frames under torch.cuda.set_sync_debug_mode: a
+   synchronizing op inside the line scan, or one of the port's inside
+   video_exact, fails the run; any other is reported with its source line.
 5. goldens — all 11 tags of tests/fixtures/device_parity_goldens.npz (NTSC,
    NTSC_b16, NTSCVHS, NTSCVHS_b16, NTSC_bloom, NTSC_conv7, PV1K, PV1K_b16,
    NES, SNES, NESRGB) replayed through step / step_batch on the card,
@@ -70,6 +71,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
 7. variants — one batch-2 step each of fixed sync (do_vsync and do_hsync
    False: K3 must not launch), NTSC_RAINBOW, SNES, TEMPLATE and NESRGB,
    held to the CPU's plain path.
+8. video and front ends — tests/fixtures/video_goldens.npz (the JAX package's
+   video_exact, v_fac 4 included, and video_strided) replayed bit-exact;
+   then each path counted like the main paths: video_exact of 16 640x480
+   frames (frames 0-3 held to the CPU plain path; ms a frame),
+   video_strided at B 512, k 2 from 320x240 (slots 0 and 511 held to
+   video_exact of their sub-videos; frames/s, peak memory), cli.video_main
+   on 16 BMP frames (NTSCVHS, -a; every frame held to video_exact; frames/s
+   with the file I/O), cli.main on the test card (the card's file equal to
+   the CPU's), LiveSession at 832x624 (60 tick and 60 tick_fast, equal;
+   ms a tick) and term_live.main --frames 30 --no-display; a checkpoint
+   saved mid-video, loaded and resumed (equal to the uninterrupted run);
+   parallel.mesh's make_sharded_step over one card and over the same card
+   twice (the split and merge; the split over several cards is
+   tests/test_torch_mesh.py's and time_mesh's) against step_batch.
 
 BOUNDS: a kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once; of K6's previous frame only the rows
@@ -100,6 +115,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from ntsc_crt_tpu_torch.utils import profiling
+from ntsc_crt_tpu_torch.utils.profiling import (device_ms, kernel_of,
+                                                profile_step)
 
 GOLDENS = (Path(__file__).resolve().parent / "tests" / "fixtures"
            / "device_parity_goldens.npz")
@@ -164,30 +183,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, spin: bool = False) -> float:
-    """Mean time of fn() over `reps` calls between two CUDA events, after
-    one warm-up.  spin=False times the calls as the host issues them (the
-    JSON line's `ms`): a kernel shorter than one call's host time reads the
-    host's rate of launching it.  spin=True queues the calls behind a spin
-    kernel that outlasts their host time, so the device runs them back to
-    back and the time is the card's (a call that waits on the device still
-    counts the host's time after the wait)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    # the spin: the warm-up's time with its device work for every call,
-    # plus 1 ms, at most 50 ms (beyond that the host's share is small)
-    spin_s = min(reps * (time.perf_counter() - t0) + 1e-3, 0.05)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if spin:
-        torch.cuda._sleep(int(spin_s * (MEASURED["sm_hz"] or 2e9)))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    """profiling.cuda_ms (as issued, or behind a spin kernel sized at the
+    SM clock the probe read in this run)."""
+    return profiling.cuda_ms(fn, reps, spin=spin, sm_hz=MEASURED["sm_hz"])
 
 
 @contextlib.contextmanager
@@ -1088,9 +1086,57 @@ def time_row_copies(shapes=((46080, 753), (46080, 768))) -> None:
         x, y = at(ox), at(oy)
         x.copy_(x0)
         show(f"K7 {R} x {T}, {label}", x, y,
-             lambda: build.launch("ntsc_iir_lowpass_rows", x.data_ptr(),
-                                  c.data_ptr(), y.data_ptr(), R, T, stream),
+             lambda: build.launch("ntsc_iir_lowpass_rows", dev, x.data_ptr(),
+                                  c.data_ptr(), y.data_ptr(), R, T),
              want)
+
+
+def time_mesh(batch=MAIN_BATCH, steps=10) -> None:
+    """NTSC steps of `batch` 320x240 frames to 640x480 on cuda:0 alone
+    (step_batch), then split over every card (parallel.mesh, the frames on
+    cuda:0 as a caller holds them); host ms a step between two
+    synchronizations of every card, and the merged state held to the
+    one-card run's after two steps:
+
+        python3 -c "import chip_smoke as c; c.time_mesh()"
+    """
+    from ntsc_crt_tpu_torch.models import pipeline, systems
+    from ntsc_crt_tpu_torch.parallel import mesh
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    print(card_line(), flush=True)
+    cfg = systems.NTSC
+    imgs = frames_for(cfg, batch, 240, 320, 1243, cards[0])
+
+    def sync_all():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    def run(devs):
+        if devs is None:
+            st = pipeline.init_batch(cfg, batch, OUTW, OUTH, device=cards[0])
+            step = mesh.make_batched_step(cfg, noise=12)
+        else:
+            st = mesh.init_batch(cfg, batch, OUTW, OUTH, devices=devs)
+            step = mesh.make_sharded_step(cfg, devs, noise=12)
+        for i in range(2):
+            st = step(st, imgs, *path_args(batch, i, cards[0]))
+        first = mesh.gather([st] if devs is None else st)   # a copy
+        sync_all()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            st = step(st, imgs, *path_args(batch, i, cards[0]))
+        sync_all()
+        return first, (time.perf_counter() - t0) * 1e3 / steps
+
+    whole, one = run(None)
+    print(f"NTSC batch {batch} on {cards[0]}: {one:.4f} ms a step",
+          flush=True)
+    for n in range(2, len(cards) + 1):
+        merged, ms = run(cards[:n])
+        same_leaves(merged, whole, f"make_sharded_step over {n} cards")
+        print(f"NTSC batch {batch} over {n} cards: {ms:.4f} ms a step "
+              f"({one / ms:.3f}x one card); the merged state equals "
+              "step_batch's", flush=True)
 
 
 # --- goldens ------------------------------------------------------------------
@@ -1225,70 +1271,6 @@ def stage_times(pipeline, fn):
     return times
 
 
-# the port's CUDA functions on the pipeline paths, as the profiler names
-# them, and their kernels (K2's mode from its template arguments)
-KERNEL_FUNCS = (("encode_rows_kernel", "encode_rows"),
-                ("decode_rows_kernel", "decode_rows"),
-                ("bloom_line_width_kernel", "bloom_line_width"),
-                ("hsync_chase_kernel", "hsync_chase"),
-                ("ccf_ema_kernel", "ccf_ema"),
-                ("vhs_region_b_kernel", "vhs_region_b_entries"),
-                ("place_rows_kernel", "place_rows_uniform"))
-
-
-def kernel_of(event: str):
-    """The kernel of a device event's name, or None."""
-    for fn, name in KERNEL_FUNCS:
-        if fn in event:
-            if name == "decode_rows" and "Fir" in event:
-                return "decode_rows_conv"
-            if name == "decode_rows" and ("true" in event or "Lb1E" in event):
-                return "decode_rows_bloom"
-            return name
-    return None
-
-
-def profile_step(fn):
-    """(device operations, of which kernels, device busy ms, wall ms, the
-    eight torch ops with the most host time, {kernel: (device ms,
-    launches)} of the port's kernels) of one call of fn() under
-    torch.profiler; counts 0 if the trace shows no device events."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [e for e in evs if not e.name.startswith(("Memcpy", "Memset"))]
-    busy, end = 0.0, -1.0
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in evs):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    top = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total,
-                 reverse=True)[:8]
-    top = ", ".join(f"{a.key} {a.count}x {a.self_cpu_time_total / 1e3:.3f}"
-                    for a in top)
-    ours = {}
-    for e in kernels:
-        name = kernel_of(e.name)
-        if name is not None:
-            ms, n = ours.get(name, (0.0, 0))
-            ours[name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
-                          n + 1)
-    return len(evs), len(kernels), busy / 1e3, wall, top, ours
-
-
-def device_ms(avg) -> float:
-    """A key_averages() row's own device time, ms."""
-    us = getattr(avg, "self_device_time_total", None)
-    return (avg.self_cuda_time_total if us is None else us) / 1e3
-
-
 def profile_line_scan(pipeline, cfg, st, imgs, B, kw, card):
     """The device operations of one step's line scan (models/demodulate.py
     _line_scan: the rolled4 row select, the rows2 concatenation, the burst
@@ -1335,10 +1317,12 @@ def profile_line_scan(pipeline, cfg, st, imgs, B, kw, card):
 
 
 def phase_syncs(pipeline, systems, dev, gate=True):
-    """One NTSC batch-1 step under torch.cuda.set_sync_debug_mode("warn"),
-    each synchronizing op reported by the line of the port that called it;
-    one inside the line scan fails the run unless `gate` is off (to run the
-    script on a package from before the line scan lost its sync)."""
+    """One NTSC batch-1 step, then one video_exact call of 4 frames, under
+    torch.cuda.set_sync_debug_mode("warn"), each synchronizing op reported
+    by the line of the port that called it; one inside the line scan, or
+    any of the port's inside video_exact, fails the run unless `gate` is
+    off (to run the script on a package from before the line scan lost its
+    sync or from before video_exact)."""
     import traceback
 
     from ntsc_crt_tpu_torch.models import demodulate as dem
@@ -1346,8 +1330,15 @@ def phase_syncs(pipeline, systems, dev, gate=True):
     img = frames_for(cfg, 1, OUTH, OUTW, 1234, dev)
     st = pipeline.init_batch(cfg, 1, OUTW, OUTH, device=dev)
     st = pipeline.step_batch(cfg, st, img, *path_args(1, 0, dev), noise=12)
+    clip = frames_for(cfg, 4, OUTH, OUTW, 1236, dev)
+    single = pipeline.crt_init(cfg, OUTW, OUTH, device=dev)
+    video = None
+    if gate:
+        from ntsc_crt_tpu_torch.models import video
+        video.video_exact(cfg, single, clip, noise=12)          # warm
     torch.cuda.synchronize()
-    in_scan, found = [False], {False: set(), True: set()}
+    where_now = ["outside"]
+    found = {"outside": set(), "scan": set(), "video": set()}
 
     def note(message, category, filename, lineno, file=None, line=None):
         if "synchroniz" not in str(message):
@@ -1358,17 +1349,17 @@ def phase_syncs(pipeline, systems, dev, gate=True):
         port = [f for f in stack if "ntsc_crt_tpu_torch" in f.filename]
         mine = [f for f in stack if f.filename == __file__]
         where = (port or mine or stack)[-1]
-        found[in_scan[0]].add(
+        found[where_now[0]].add(
             f"{Path(where.filename).name}:{where.lineno}"
             + ("" if port else " (not the port's)"))
 
     def mark(name, fn):
         def run(*a, **k):
-            in_scan[0] = True
+            where_now[0] = "scan"
             try:
                 return fn(*a, **k)
             finally:
-                in_scan[0] = False
+                where_now[0] = "outside"
         return run
 
     with warnings.catch_warnings():
@@ -1379,14 +1370,24 @@ def phase_syncs(pipeline, systems, dev, gate=True):
             with patched([(dem, "_line_scan")], mark):
                 pipeline.step_batch(cfg, st, img, *path_args(1, 1, dev),
                                     noise=12)
+            if video is not None:
+                where_now[0] = "video"
+                video.video_exact(cfg, single, clip, noise=12)
+                where_now[0] = "outside"
         finally:
             torch.cuda.set_sync_debug_mode(0)
     print("NTSC batch-1 step under set_sync_debug_mode: synchronizing ops "
-          f"inside _line_scan at {', '.join(sorted(found[True])) or 'none'};"
-          f" outside it at {', '.join(sorted(found[False])) or 'none'}",
+          f"inside _line_scan at {', '.join(sorted(found['scan'])) or 'none'};"
+          f" outside it at {', '.join(sorted(found['outside'])) or 'none'}",
           flush=True)
-    if found[True] and gate:
+    if video is not None:
+        print("NTSC video_exact of 4 frames under set_sync_debug_mode: "
+              "synchronizing ops at "
+              f"{', '.join(sorted(found['video'])) or 'none'}", flush=True)
+    if found["scan"] and gate:
         raise SystemExit("the line scan synchronizes the stream")
+    if any("not the port" not in w for w in found["video"]):
+        raise SystemExit("video_exact synchronizes the stream")
 
 
 def counted(label, needed, run):
@@ -1480,6 +1481,289 @@ def phase_variant(pipeline, cfg, kw, needed, dev):
     print(f"{label}: equals the CPU plain path (batch {B})", flush=True)
 
 
+# --- video and front ends -----------------------------------------------------
+
+VIDEO_GOLDENS = GOLDENS.parent / "video_goldens.npz"
+NTSC_KERNELS = ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows",
+                "place_rows_uniform")
+
+
+def same_video_golden(ref, case, st, outs):
+    """Every frame, the analog field's SHA-256 and the other leaves; `out`
+    is the last frame (or chunk) of outs."""
+    import hashlib
+    got = {k: v.cpu().numpy() for k, v in st._asdict().items()}
+    outs = outs.cpu().numpy()
+    last = outs[-got["out"].shape[0]:] if got["out"].ndim == 4 else outs[-1]
+    sha = np.frombuffer(hashlib.sha256(got["analog"].tobytes()).digest(),
+                        np.uint8)
+    checks = [("outs", outs, ref[f"{case}/outs"]),
+              ("analog_sha256", sha, ref[f"{case}/analog_sha256"]),
+              ("out", got["out"], last)]
+    checks += [(k, got[k], ref[f"{case}/{k}"])
+               for k in ("ccf", "hsync", "vsync", "rn", "randstate")]
+    for k, a, b in checks:
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise SystemExit(f"video golden {case}/{k} differs on the card")
+
+
+def phase_video_goldens(pipeline, video, systems, dev):
+    """tests/fixtures/video_goldens.npz (the JAX package's video_exact and
+    video_strided) replayed on the card, each case by the recipe stored
+    beside it in the file (tests/test_torch_video.py writes both)."""
+    from ntsc_crt_tpu_torch.models.demodulate import MonitorParams
+    ref = np.load(VIDEO_GOLDENS)
+    cfg = systems.NTSC
+    cases = sorted({k.split("/")[0] for k in ref.files if "/" in k})
+    for case in cases:
+        r = {str(f): int(v) for f, v in zip(ref["recipe_fields"],
+                                            ref[f"{case}/recipe"])}
+        frames = torch.as_tensor(np.random.RandomState(r["seed"]).randint(
+            0, 256, (r["frames"], r["in_h"], r["in_w"], 3), np.uint8),
+            device=dev)
+        fn = video.video_strided if r["batch"] else video.video_exact
+        st, outs = fn(cfg, pipeline.crt_init(cfg, r["outw"], r["outh"],
+                                             batch=r["batch"] or None,
+                                             device=dev),
+                      frames, noise=r["noise"],
+                      mon=MonitorParams(blend=r["blend"],
+                                        scanlines=r["blend"]),
+                      v_fac=r["v_fac"])
+        same_video_golden(ref, case, st, outs)
+        print(f"video golden {case} ({r}): every frame and state leaf "
+              "bit-exact on the card", flush=True)
+
+
+def timed(fn):
+    """(host ms around fn() with the device drained on both sides, its
+    result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def same_leaves(a, b, what):
+    for k in a._fields:
+        if not torch.equal(getattr(a, k).cpu(), getattr(b, k).cpu()):
+            raise SystemExit(f"{what}: leaf {k} differs")
+
+
+def phase_video(pipeline, systems, dev, card):
+    """The video pipelines, the CLIs, the live session, a checkpoint's
+    resume and the slot split, each path counted; returns the launches."""
+    import io
+    import tempfile
+
+    from ntsc_crt_tpu_torch import cli
+    from ntsc_crt_tpu_torch.apps import term_live
+    from ntsc_crt_tpu_torch.apps.live import LiveSession
+    from ntsc_crt_tpu_torch.models import video
+    from ntsc_crt_tpu_torch.models.demodulate import MonitorParams
+    from ntsc_crt_tpu_torch.parallel import mesh
+    from ntsc_crt_tpu_torch.utils import (checkpoint, imageio, native_io,
+                                          testcard)
+    cfg, vhs = systems.NTSC, systems.NTSCVHS
+    rgb = NTSC_KERNELS[:4]
+    launches = dict.fromkeys(ORIGIN, 0)
+
+    def count(label, needed, run):
+        counts, out = counted(label, needed, run)
+        for k, n in counts.items():
+            launches[k] += n
+        return out
+
+    def fresh(c=cfg):
+        return pipeline.crt_init(c, OUTW, OUTH, device=dev)
+
+    phase_video_goldens(pipeline, video, systems, dev)
+
+    # exact: T frames of 640x480, frames 0-3 held to the CPU plain path
+    T = 16
+    clip = frames_for(cfg, T, OUTH, OUTW, 1240, dev)
+    video.video_exact(cfg, fresh(), clip[:2], noise=12)          # warm
+    ms, (st, outs) = count(
+        f"NTSC video_exact, {T} frames", NTSC_KERNELS,
+        lambda: timed(lambda: video.video_exact(cfg, fresh(), clip,
+                                                noise=12)))
+    if tuple(outs.shape) != (T, OUTH, OUTW, 3) or outs.dtype != torch.uint8:
+        raise SystemExit(f"video_exact: bad output {tuple(outs.shape)}")
+    _, want = video.video_exact(
+        cfg, pipeline.crt_init(cfg, OUTW, OUTH, device="cpu"),
+        clip[:4].cpu(), noise=12)
+    if not torch.equal(outs[:4].cpu(), want):
+        raise SystemExit("video_exact frames 0-3 differ from the CPU")
+    print(f"NTSC video_exact 640x480, {T} frames: {ms / T:.4f} ms/frame, "
+          f"{T * 1e3 / ms:.2f} frames/s; frames 0-3 equal the CPU plain "
+          f"path  [{card}]", flush=True)
+
+    # strided: B slots, k frames each, from 320x240; slots 0 and B - 1
+    # held to video_exact of their sub-videos from the same slot state
+    B, k = MAIN_BATCH, 2
+    frames = frames_for(cfg, B * k, 240, 320, 1241, dev)
+    states0 = pipeline.init_batch(cfg, B, OUTW, OUTH, device=dev)
+    video.video_strided(cfg, states0, frames[:B], noise=12)      # warm
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms, (stB, outsB) = count(
+        f"NTSC video_strided, B {B}, k {k}", NTSC_KERNELS,
+        lambda: timed(lambda: video.video_strided(cfg, states0, frames,
+                                                  noise=12)))
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(outsB.shape) != (B * k, OUTH, OUTW, 3):
+        raise SystemExit(f"video_strided: bad output {tuple(outsB.shape)}")
+    for b in (0, B - 1):
+        one = pipeline.CRTState(*(x[b] for x in states0))
+        st1, o1 = video.video_exact(cfg, one, frames[b::B], noise=12)
+        if not torch.equal(o1, outsB[b::B]):
+            raise SystemExit(f"video_strided slot {b} differs from "
+                             "video_exact of its sub-video")
+        same_leaves(st1, pipeline.CRTState(*(x[b] for x in stB)),
+                    f"video_strided slot {b}")
+    print(f"NTSC video_strided 320x240 -> 640x480, B {B}, k {k}: "
+          f"{B * k * 1e3 / ms:.2f} frames/s, {ms / k:.3f} ms/step, peak "
+          f"{peak / 2**20:.1f} MiB allocated; slots 0 and {B - 1} equal "
+          f"video_exact of their sub-videos  [{card}]", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # video_main on n BMP frames (NTSCVHS, aberration), against
+        # video_exact; frames/s with the file I/O
+        n = 16
+        src, dst = tmp / "frames", tmp / "out"
+        src.mkdir()
+        pics = frames_for(cfg, n, OUTH, OUTW, 1242, "cpu").numpy()
+        for i in range(n):
+            imageio.bmp_write(src / f"{i:06d}.bmp", pics[i])
+        native_io.available()                     # its build, untimed
+        args = ["-a", "-W", str(OUTW), "-H", str(OUTH), str(n), str(src),
+                str(dst)]
+
+        def quiet(fn):
+            with contextlib.redirect_stdout(io.StringIO()):
+                return fn()
+        ms, rc = count(f"NTSCVHS video_main, {n} BMP frames",
+                       rgb + ("place_rows_uniform", "vhs_region_b_entries"),
+                       lambda: timed(lambda: quiet(
+                           lambda: cli.video_main(args))))
+        _, want = video.video_exact(
+            vhs, fresh(vhs), torch.as_tensor(pics, device=dev), noise=24,
+            mon=MonitorParams(blend=0, scanlines=0, saturation=10),
+            do_aberration=1)
+        want = want.cpu().numpy()
+        for i in range(n):
+            if not np.array_equal(imageio.bmp_read(dst / f"{i:06d}.bmp"),
+                                  want[i]):
+                raise SystemExit(f"video_main frame {i} differs from "
+                                 "video_exact")
+        print(f"NTSCVHS video_main 640x480 -a, {n} BMP frames: rc {rc}, "
+              f"{n * 1e3 / ms:.2f} frames/s end to end (native codec "
+              f"{native_io.available()}); every frame equals video_exact  "
+              f"[{card}]", flush=True)
+
+        # the image CLI on the test card: the card's bytes against the CPU's
+        card_img = tmp / "card.ppm"
+        imageio.ppm_write(card_img, testcard.test_card())
+        got = {}
+        for d in (None, "cpu"):
+            out = tmp / f"cli_{d}.ppm"
+            argv = ["-o", str(OUTW), str(OUTH), "12", "0", str(card_img),
+                    str(out)]
+            run = lambda: quiet(lambda: cli.main(argv, device=d))  # noqa
+            rc = count("NTSC cli.main, test card", NTSC_KERNELS, run) \
+                if d is None else run()
+            if rc != 0:
+                raise SystemExit(f"cli.main on {d or 'the card'}: rc {rc}")
+            got[d] = out.read_bytes()
+        if got[None] != got["cpu"]:
+            raise SystemExit("cli.main: the card's bytes differ from the CPU")
+        print("NTSC cli.main -o 640 480 12 0 on the test card: the card's "
+              "file equals the CPU's", flush=True)
+
+        # a checkpoint mid-video: save after 4 of 8 frames, load, resume
+        _, full = video.video_exact(cfg, fresh(), clip[:8], noise=12)
+        st4, _ = video.video_exact(cfg, fresh(), clip[:4], noise=12)
+        fseq, frseq = video._parities(8, cfg.progressive)
+        ck = tmp / "ck.npz"
+        checkpoint.save_checkpoint(str(ck), st4, frame_index=4,
+                                   field=int(fseq[4]), frame=int(frseq[4]))
+        st, meta = checkpoint.load_checkpoint(str(ck))
+        same_leaves(st, st4, "checkpoint round trip")
+        field, frame = meta["field"], meta["frame"]
+        for i in range(meta["frame_index"], 8):
+            st = pipeline.step(cfg, st, clip[i], field=field, frame=frame,
+                               noise=12)
+            if not torch.equal(st.out, full[i]):
+                raise SystemExit(f"resumed frame {i} differs")
+            field ^= 1
+            if (i & 1) == 0:
+                frame ^= 1
+        print("checkpoint: saved after frame 4 of 8 on the card, loaded "
+              "(every leaf equal), resumed: frames 4-7 equal the "
+              "uninterrupted run", flush=True)
+
+        # profiling.profile_kernels: a trace of two NTSC steps at batch 64,
+        # its device events summed by name
+        total, rows = profiling.profile_kernels("NTSC", batch=64, steps=2,
+                                                logdir=str(tmp / "trace"))
+        if total <= 0 or not any(kernel_of(r[0]) for r in rows):
+            raise SystemExit("profile_kernels: no port kernel in the trace")
+        print(f"profile_kernels NTSC batch 64, 2 steps: device {total:.3f} "
+              "ms; most: " + ", ".join(
+                  f"{kernel_of(n) or n[:40]} {ms:.3f} ({c})"
+                  for n, ms, c in rows[:6]) + f"  [{card}]", flush=True)
+
+    # the live session at its default 832x624 (no K6: 624 is not a
+    # multiple of the 240 lines)
+    img = testcard.test_card()
+    a, b = LiveSession(cfg, noise=12), LiveSession(cfg, noise=12)
+    a.tick(img)
+    b.tick_fast(img)                                             # warm
+
+    def ticks():
+        res = {}
+        for name, fn in (("tick", a.tick), ("tick_fast", b.tick_fast)):
+            t0 = time.perf_counter()
+            res[name] = [fn(img) for _ in range(60)]
+            res[name + " ms"] = (time.perf_counter() - t0) * 1e3 / 60
+        return res
+    res = count("NTSC LiveSession 832x624, 60 tick + 60 tick_fast", rgb,
+                ticks)
+    for i, (x, y) in enumerate(zip(res["tick"], res["tick_fast"])):
+        if not np.array_equal(x, y):
+            raise SystemExit(f"tick_fast differs from tick at tick {i}")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = count("NTSC term_live.main --frames 30 --no-display", rgb,
+                   lambda: term_live.main(["--frames", "30",
+                                           "--no-display"]))
+    if rc != 0:
+        raise SystemExit(f"term_live.main: rc {rc}")
+    print(f"NTSC LiveSession 832x624: tick {res['tick ms']:.4f} ms, "
+          f"tick_fast {res['tick_fast ms']:.4f} ms (full frame to the "
+          "host), 60 each, every tick_fast frame equals tick's; "
+          f"term_live: {err.getvalue().strip()}  [{card}]", flush=True)
+
+    # the slot split: over one card, and over the card twice
+    B = 8
+    imgs = frames_for(cfg, B, 240, 320, 1243, dev)
+    whole = pipeline.init_batch(cfg, B, OUTW, OUTH, device=dev)
+    for i in range(2):
+        whole = pipeline.step_batch(cfg, whole, imgs, *path_args(B, i, dev),
+                                    noise=12)
+    for devs in ([dev], [dev, dev]):
+        chunks = mesh.init_batch(cfg, B, OUTW, OUTH, devices=devs)
+        step = mesh.make_sharded_step(cfg, devs, noise=12)
+        for i in range(2):
+            chunks = step(chunks, imgs, *path_args(B, i, dev))
+        same_leaves(mesh.gather(chunks), whole,
+                    f"make_sharded_step over {len(devs)}")
+    print(f"mesh: make_sharded_step over [{dev}] and [{dev}, {dev}] (split "
+          f"and merge on one card), batch {B}, 2 steps, equals step_batch",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1545,6 +1829,10 @@ def main() -> int:
     for cfg in (systems.NTSC_RAINBOW, systems.SNES, systems.TEMPLATE,
                 systems.NESRGB):
         phase_variant(pipeline, cfg, {}, rgb + ("place_rows_uniform",), dev)
+
+    # 8. video and front ends
+    for k, n in phase_video(pipeline, systems, dev, card).items():
+        launches[k] += n
 
     def reported(k):          # a kernel's first label, at the last batch
         label = next(iter(table[k]))[0]

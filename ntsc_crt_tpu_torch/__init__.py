@@ -18,14 +18,25 @@ package's integer results bit for bit; the JAX package stays the reference.
                 build.py compiles csrc/*.cu with nvcc at first use
   models/       the system presets (its own copy), every encoder family
                 (NTSC, VHS, SNES/TEMPLATE/PV1K, NESRGB, NES), the
-                demodulator and the frame pipeline
-  utils/        state conversion to and from the JAX package
+                demodulator, the frame pipeline and the video pipelines
+                (video.py: exact and strided, the phosphor fade, the
+                analog dump)
+  utils/        state conversion to and from the JAX package, checkpoints
+                (one .npz), profiling (stage timers, CUDA events,
+                torch.profiler traces), and its own copies of the image
+                I/O, pixel formats, test card and native frame codec
+  cli.py        the image and video converters (ntsc-torch,
+                ntsc-video-torch)
+  apps/         the live session (live.py) and its terminal and X11
+                front ends (ntsc-live-torch, ntsc-x11-torch)
+  parallel/     frame slots split over CUDA cards (mesh.py)
 
 The pipeline runs every preset (``SYSTEMS``) with the decode build variants
 (``eq_mode``, ``do_bloom``, ``do_vsync``, ``do_hsync``) and the NES builds
 (``draw_border``, ``border_color``, ``optimized``).  Its entry points put
-state on the CUDA card unless given ``device="cpu"``.  This package imports
-neither JAX nor the JAX package.
+state on the CUDA card unless given ``device="cpu"`` (the CLIs and apps take
+``device=`` as a Python keyword).  This package imports neither JAX nor
+the JAX package.
 """
 
 from ntsc_crt_tpu_torch.models.systems import (  # noqa: F401

@@ -7,7 +7,8 @@ package, at first use.  The hash covers the sources and the flags, so an
 edited kernel rebuilds and an unchanged one loads from the cache.  The
 library is bound with ctypes: every pointer and the stream are
 ``c_void_p`` (a plain int argument would cut a 64-bit pointer), every entry
-point returns ``cudaGetLastError()`` and ``launch`` raises if that is not 0.
+point takes the stream last and returns ``cudaGetLastError()``, and
+``launch`` raises if that is not 0.
 """
 
 from __future__ import annotations
@@ -117,9 +118,15 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call entry point `name`; raise if the launch reported a CUDA error."""
-    rc = getattr(library(), name)(*args)
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point `name` with `args` and `device`'s current stream,
+    with `device` made the current card for the call: CUDA launches a
+    kernel only into a stream of the current device, and torch's own ops
+    leave the current device as they found it.  Raise if the launch
+    reported a CUDA error."""
+    fn = getattr(library(), name)
+    with torch.cuda.device(device):
+        rc = fn(*args, stream(device))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
 

@@ -48,9 +48,9 @@ def ccf_ema(per_cls: torch.Tensor, vper_l: torch.Tensor,
                          f"L={L}")
     ccf_f = torch.empty((B, VP, CC), dtype=torch.int32, device=dev)
     ccr_l = torch.empty((B, L, CC), dtype=torch.int32, device=dev)
-    build.launch("ntsc_ccf_ema", per_cls.data_ptr(), vper_l.data_ptr(),
+    build.launch("ntsc_ccf_ema", dev, per_cls.data_ptr(), vper_l.data_ptr(),
                  active_l.data_ptr(), ccf0.data_ptr(), ccf_f.data_ptr(),
-                 ccr_l.data_ptr(), B, L, m, VP, CC, build.stream(dev))
+                 ccr_l.data_ptr(), B, L, m, VP, CC)
     LAUNCHES += 1
     return ccf_f, ccr_l
 

@@ -109,13 +109,12 @@ def decode_rows(rows: torch.Tensor, shifts: torch.Tensor, waveI: torch.Tensor,
     out = torch.empty((B, L, outw, 3), dtype=torch.uint8, device=dev)
     eq, ints = _eq_code(coefs)
     k = (ctypes.c_int * len(ints))(*ints)
-    build.launch("ntsc_decode_rows", rows.data_ptr(), shifts.data_ptr(),
+    build.launch("ntsc_decode_rows", dev, rows.data_ptr(), shifts.data_ptr(),
                  waveI.data_ptr(), waveQ.data_ptr(), bright.data_ptr(),
                  contrast.data_ptr(), bloom_dx.data_ptr() if bloom else None,
                  bloom_lidx.data_ptr() if bloom else None, ctypes.addressof(k),
                  out.data_ptr(), B, L, NR, H, row0, av_len,
-                 eq_len(av_len, cc) if bloom else av_len, outw, cc, eq,
-                 build.stream(dev))
+                 eq_len(av_len, cc) if bloom else av_len, outw, cc, eq)
     if bloom:
         BLOOM_LAUNCHES += 1
     elif conv:
@@ -250,9 +249,9 @@ def bloom_line_width(rows: torch.Tensor, xpos_l: torch.Tensor,
     if rows.data_ptr() % 16:
         raise ValueError("bloom_line_width: rows must be 16-byte aligned")
     out = torch.empty((B, L), dtype=torch.int32, device=dev)
-    build.launch("ntsc_bloom_line_width", rows.data_ptr(), xpos_l.data_ptr(),
-                 max_e.data_ptr(), out.data_ptr(), B, L, NR, H, row0, av_len,
-                 build.stream(dev))
+    build.launch("ntsc_bloom_line_width", dev, rows.data_ptr(),
+                 xpos_l.data_ptr(), max_e.data_ptr(), out.data_ptr(), B, L,
+                 NR, H, row0, av_len)
     LINE_WIDTH_LAUNCHES += 1
     return out
 

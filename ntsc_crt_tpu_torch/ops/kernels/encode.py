@@ -59,11 +59,10 @@ def encode_rows(img: torch.Tensor, sy: torch.Tensor, modI: torch.Tensor,
         raise ValueError(f"encode_rows: cc must be 4 or 5, got {cc}")
     out = torch.empty((B, desth, destw), dtype=torch.int8, device=dev)
     cY, cI, cQ = coefs if coefs is not None else (0, 0, 0)
-    build.launch("ntsc_encode_rows", img.data_ptr(), sy.data_ptr(),
+    build.launch("ntsc_encode_rows", dev, img.data_ptr(), sy.data_ptr(),
                  modI.data_ptr(), modQ.data_ptr(), gain.data_ptr(),
                  base.data_ptr(), out.data_ptr(), B, h, w, desth, destw, cc,
-                 xo_mod, int(coefs is not None), cY, cI, cQ,
-                 build.stream(dev))
+                 xo_mod, int(coefs is not None), cY, cI, cQ)
     LAUNCHES += 1
     return out
 

@@ -48,9 +48,9 @@ def hsync_chase(rows2: torch.Tensor, active_l: torch.Tensor,
         raise ValueError("hsync_chase: rows2 must start on a 4-byte "
                          "boundary (the kernel copies aligned words)")
     out = torch.empty((B, L), dtype=torch.int32, device=dev)
-    build.launch("ntsc_hsync_chase", rows2.data_ptr(), active_l.data_ptr(),
-                 hsync0.data_ptr(), out.data_ptr(), B, L, HP, W, c0, thresh,
-                 H, build.stream(dev))
+    build.launch("ntsc_hsync_chase", dev, rows2.data_ptr(),
+                 active_l.data_ptr(), hsync0.data_ptr(), out.data_ptr(), B,
+                 L, HP, W, c0, thresh, H)
     LAUNCHES += 1
     return out
 

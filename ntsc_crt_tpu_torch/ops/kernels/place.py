@@ -45,9 +45,9 @@ def place_rows_uniform(rgb: torch.Tensor, old: torch.Tensor,
     build.check("old", old, torch.uint8, (B, ratio * L, w, 3), dev)
     build.check("field_px", field_px, torch.int32, (B,), dev)
     out = torch.empty_like(old)
-    build.launch("ntsc_place_rows_uniform", rgb.data_ptr(), old.data_ptr(),
-                 field_px.data_ptr(), out.data_ptr(), B, L, ratio, w * 3, fp,
-                 int(bool(blend)), scanlines, build.stream(dev))
+    build.launch("ntsc_place_rows_uniform", dev, rgb.data_ptr(),
+                 old.data_ptr(), field_px.data_ptr(), out.data_ptr(), B, L,
+                 ratio, w * 3, fp, int(bool(blend)), scanlines)
     LAUNCHES += 1
     return out
 

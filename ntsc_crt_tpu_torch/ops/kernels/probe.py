@@ -73,9 +73,8 @@ def probe(x: torch.Tensor, pattern: str, iters: int = 4096) -> torch.Tensor:
         raise ValueError(f"probe: x must be (blocks, 1, {SUB}, {LANE}) and "
                          f"iters >= 0, got {tuple(x.shape)}, {iters}")
     out = torch.empty_like(x)
-    build.launch("ntsc_probe", x.data_ptr(), out.data_ptr(), x.numel(),
-                 PATTERNS.index(pattern), iters, THREADS,
-                 build.stream(x.device))
+    build.launch("ntsc_probe", x.device, x.data_ptr(), out.data_ptr(),
+                 x.numel(), PATTERNS.index(pattern), iters, THREADS)
     LAUNCHES += 1
     return out
 

@@ -45,8 +45,8 @@ def iir_lowpass_rows(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     global IIR_LAUNCHES
     build, R, T = _check_rows("iir_lowpass_rows", x, dict(c=c), x.device)
     y = torch.empty_like(x)
-    build.launch("ntsc_iir_lowpass_rows", x.data_ptr(), c.data_ptr(),
-                 y.data_ptr(), R, T, build.stream(x.device))
+    build.launch("ntsc_iir_lowpass_rows", x.device, x.data_ptr(), c.data_ptr(),
+                 y.data_ptr(), R, T)
     IIR_LAUNCHES += 1
     return y
 
@@ -62,9 +62,8 @@ def eq_threeband_rows(x: torch.Tensor, lf: torch.Tensor, hf: torch.Tensor,
     coefs = dict(lf=lf, hf=hf, g0=g0, g1=g1, g2=g2)
     build, R, T = _check_rows("eq_threeband_rows", x, coefs, x.device)
     y = torch.empty_like(x)
-    build.launch("ntsc_eq_threeband_rows", x.data_ptr(),
-                 *(c.data_ptr() for c in coefs.values()), y.data_ptr(), R, T,
-                 build.stream(x.device))
+    build.launch("ntsc_eq_threeband_rows", x.device, x.data_ptr(),
+                 *(c.data_ptr() for c in coefs.values()), y.data_ptr(), R, T)
     EQ_LAUNCHES += 1
     return y
 

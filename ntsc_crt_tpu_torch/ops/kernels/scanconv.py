@@ -45,9 +45,9 @@ def scanconv_rows(oy: torch.Tensor, oi: torch.Tensor, oq: torch.Tensor,
         raise ValueError(f"scanconv_rows: bad geometry R={R} T={T} "
                          f"outw={outw}")
     out = torch.empty((R, outw), dtype=torch.int32, device=dev)
-    build.launch("ntsc_scanconv_rows", oy.data_ptr(), oi.data_ptr(),
+    build.launch("ntsc_scanconv_rows", dev, oy.data_ptr(), oi.data_ptr(),
                  oq.data_ptr(), contrast.data_ptr(), out.data_ptr(), R, T,
-                 outw, build.stream(dev))
+                 outw)
     LAUNCHES += 1
     return out
 

@@ -54,8 +54,8 @@ def vhs_region_b_entries(st0: torch.Tensor, *, n_steps: int,
         raise ValueError(f"vhs_region_b_entries: bad sizes B={B} "
                          f"n_steps={n_steps} H={H}")
     out = torch.empty((B, n_steps), dtype=torch.int32, device=dev)
-    build.launch("ntsc_vhs_region_b_entries", st0.data_ptr(), out.data_ptr(),
-                 B, n_steps, H, build.stream(dev))
+    build.launch("ntsc_vhs_region_b_entries", dev, st0.data_ptr(),
+                 out.data_ptr(), B, n_steps, H)
     LAUNCHES += 1
     return out
 

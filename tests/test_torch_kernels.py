@@ -580,8 +580,8 @@ def test_k7_k8_kernels_off_the_line_grid(cuda, R, T, ox, oy):
         yd = at(oy)
         cd = [torch.as_tensor(np.ascontiguousarray(v), device=cuda)
               for v in coefs]
-        build.launch(entry, xd.data_ptr(), *(v.data_ptr() for v in cd),
-                     yd.data_ptr(), R, T, build.stream(cuda))
+        build.launch(entry, cuda, xd.data_ptr(),
+                     *(v.data_ptr() for v in cd), yd.data_ptr(), R, T)
         torch.cuda.synchronize()
         same(yd, plain(torch.as_tensor(x), *map(torch.as_tensor, coefs)))
 

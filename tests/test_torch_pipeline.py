@@ -194,6 +194,12 @@ def test_port_imports_no_jax():
             "from ntsc_crt_tpu_torch.utils import convert; "
             "from ntsc_crt_tpu_torch.ops.kernels import ccf, place, vhs, "
             "probe, rowfilters, scanconv; "
+            "from ntsc_crt_tpu_torch import cli; "
+            "from ntsc_crt_tpu_torch.apps import live, term_live, x11_live; "
+            "from ntsc_crt_tpu_torch.models import video; "
+            "from ntsc_crt_tpu_torch.parallel import mesh; "
+            "from ntsc_crt_tpu_torch.utils import checkpoint, formats, "
+            "imageio, native_io, profiling, testcard; "
             "assert 'jax' not in sys.modules, sorted(sys.modules); "
             "jp = [m for m in sys.modules if m == 'ntsc_crt_tpu' "
             "or m.startswith('ntsc_crt_tpu.')]; "

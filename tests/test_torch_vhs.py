@@ -74,21 +74,42 @@ def test_systems_copy_equals_jax_package():
                                          jsystems.CHROMA_SAWTOOTH)
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     """Without a device the entry points put state on the CUDA card, and
-    raise where there is none: they never fall back to the CPU."""
+    raise where there is none: they never fall back to the CPU.  Also the
+    CLIs and apps: the live session, checkpoint loading, the image CLI and the
+    slot split over cards."""
+    from ntsc_crt_tpu_torch import cli
+    from ntsc_crt_tpu_torch.apps.live import LiveSession
+    from ntsc_crt_tpu_torch.parallel import mesh
+    from ntsc_crt_tpu_torch.utils import checkpoint, imageio
+
     leaves = convert.state_to_numpy(
         pipeline.crt_init(VHS, 32, 24, batch=2, device="cpu"))
-    calls = [lambda: pipeline.crt_init(VHS, 32, 24),
-             lambda: pipeline.init_batch(VHS, 2, 32, 24),
-             lambda: convert.state_from_numpy(leaves),
-             lambda: convert.mon_from_numpy({"hue": np.arange(2)})]
+    ck = tmp_path / "ck.npz"
+    checkpoint.save_checkpoint(str(ck), pipeline.crt_init(VHS, 32, 24,
+                                                          device="cpu"))
+    inp = tmp_path / "in.ppm"
+    imageio.ppm_write(inp, np.zeros((24, 32, 3), np.uint8))
+    states = [lambda: pipeline.crt_init(VHS, 32, 24),
+              lambda: pipeline.init_batch(VHS, 2, 32, 24),
+              lambda: convert.state_from_numpy(leaves),
+              lambda: checkpoint.load_checkpoint(str(ck))[0],
+              lambda: LiveSession(VHS, 32, 24).state,
+              lambda: mesh.init_batch(VHS, 2, 32, 24)[0]]
+    others = [lambda: convert.mon_from_numpy({"hue": np.arange(2)}),
+              lambda: mesh.make_sharded_step(VHS),
+              lambda: cli.main(["-o", "32", "24", "0", "0", str(inp),
+                                str(tmp_path / "out.ppm")])]
     if torch.cuda.is_available():
-        for call in calls[:3]:
+        for call in states:
             assert call().analog.device.type == "cuda"
-        assert calls[3]().hue.device.type == "cuda"
+        assert others[0]().hue.device.type == "cuda"
+        assert mesh.resolve_devices(None) == [
+            torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        assert others[2]() == 0
         return
-    for call in calls:
+    for call in states + others:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
