@@ -85,6 +85,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    parallel.mesh's make_sharded_step over one card and over the same card
    twice (the split and merge; the split over several cards is
    tests/test_torch_mesh.py's and time_mesh's) against step_batch.
+9. spatial split and demo — make_sharded_step over make_mesh(1, 2) and
+   make_mesh(2, 2) of this card repeated, each counted: NTSC at batch 1
+   (640x480 image) and 512 (320x240 images), NTSCVHS (do_aberration 1),
+   bloom, conv7, PV1K and NES at batch 2, two steps each, every leaf held
+   to step_batch at 0 LSB; parallel.spatial's _INSPECT record shows K1's
+   rows and K2's lines tiled once over each mesh row, a launch a shard.
+   K7, K8 and K9 through their op entries over a group of two, held to one
+   call.  One batch-1 step over 1x2 under set_sync_debug_mode("error")
+   (any synchronizing op fails the run); the bytes a second shard copies a
+   step; host ms a step at NTSC batch 1 and 512, 1x1 against 1x2 (1x1,
+   1x2, 1x2, 1x1).  Then `python -m ntsc_crt_tpu_torch.demo` on the card
+   into a temporary directory (every system, counted), its NTSC files
+   held to the same demo on the CPU.  The split over distinct cards is
+   tests/test_torch_spatial.py's `gpu` tests' and time_spatial's.
 
 BOUNDS: a kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once; of K6's previous frame only the rows
@@ -1139,6 +1153,68 @@ def time_mesh(batch=MAIN_BATCH, steps=10) -> None:
               "step_batch's", flush=True)
 
 
+def time_spatial(steps1=20, stepsB=5, cards=None) -> None:
+    """NTSC steps over 1x1, 1x2, 1x4 and 2x2 meshes of distinct cards (as
+    many as there are), the frames on cuda:0: batch 1 from a 640x480 image
+    and batch 512 from 320x240 images, to 640x480.  Each mesh's state after
+    two steps held to step_batch on cuda:0, K1's and K2's shards checked
+    (one a card of each row, every line once, a launch a shard); host ms a
+    step between two synchronizations of every card, each mesh timed twice
+    (in order, then in reverse order, so drift shows); then one batch-1 step
+    over the widest 1 x n row under set_sync_debug_mode("error").  cards:
+    the devices to use, every CUDA card by default:
+
+        python3 -c "import chip_smoke as c; c.time_spatial()"
+    """
+    from ntsc_crt_tpu_torch.models import pipeline, systems
+    from ntsc_crt_tpu_torch.parallel import mesh, spatial
+    cards = cards or [torch.device("cuda", i)
+                      for i in range(torch.cuda.device_count())]
+    card = card_line()
+    print(card, flush=True)
+    cfg, kw, needed = main_paths(systems)[0]
+    shapes = [s for s in ((1, 1), (1, 2), (1, 4), (2, 2))
+              if s[0] * s[1] <= len(cards)]
+    records = []
+    spatial._INSPECT = lambda tag, shards: records.append((tag, shards))
+    try:
+        for B, h, w, steps in ((1, OUTH, OUTW, steps1),
+                               (MAIN_BATCH, 240, 320, stepsB)):
+            imgs = frames_for(cfg, B, h, w, 1260, cards[0])
+            whole = reference(pipeline, cfg, kw, B, imgs, cards[0])
+            usable = [s for s in shapes if B >= s[0]]
+            for shape in usable:
+                spatial_case(pipeline, cfg, kw, needed, shape,
+                             cards[:shape[0] * shape[1]], B, imgs, whole,
+                             records)
+            ms = {}
+            for shape in usable + usable[::-1]:        # mirrored order
+                grid = mesh.make_mesh(*shape, cards[:shape[0] * shape[1]])
+                st = mesh.init_batch(cfg, B, OUTW, OUTH, devices=grid)
+                step = mesh.make_sharded_step(cfg, grid, noise=12)
+                for i in range(2):
+                    st = step(st, imgs, *path_args(B, i, cards[0]))
+                ms.setdefault(shape, []).append(
+                    host_ms(step, st, imgs, B, steps, cards[0]))
+            base = sum(ms[(1, 1)])
+            for shape in usable:
+                a, b = ms[shape]
+                devs = cards[:shape[0] * shape[1]]
+                print(f"NTSC batch {B} over {shape[0]}x{shape[1]} "
+                      f"({', '.join(str(d) for d in devs)}): {a:.4f}, "
+                      f"{b:.4f} ms a step over {steps} (timed in the order "
+                      f"{usable} and back; {base / (a + b):.3f}x 1x1); 2 "
+                      "steps equal step_batch, K1 and K2 a launch a shard"
+                      f"  [{card}]", flush=True)
+    finally:
+        spatial._INSPECT = None
+    n = max(s[1] for s in shapes if s[0] == 1)
+    sync_free_step(cfg, mesh.make_mesh(1, n, cards[:n]),
+                   frames_for(cfg, 1, OUTH, OUTW, 1261, cards[0]), cards[0])
+    print(f"NTSC batch 1 over 1x{n} ran under set_sync_debug_mode('error'): "
+          "no synchronizing op", flush=True)
+
+
 # --- goldens ------------------------------------------------------------------
 
 
@@ -1764,6 +1840,301 @@ def phase_video(pipeline, systems, dev, card):
     return launches
 
 
+# --- 9. the spatial split and the demo ----------------------------------------
+
+
+def main_paths(systems):
+    """(cfg, step keywords, the kernels each step must launch) of the six
+    main paths."""
+    common = ("hsync_chase", "ccf_ema", "decode_rows")
+    rgb = common + ("encode_rows",)
+    return ((systems.NTSC, {}, rgb + ("place_rows_uniform",)),
+            (systems.NTSCVHS, VHS_KW,
+             rgb + ("place_rows_uniform", "vhs_region_b_entries")),
+            (systems.NTSC, BLOOM,
+             ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows_bloom",
+              "bloom_line_width")),
+            (systems.NTSC, CONV7,
+             ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows_conv",
+              "place_rows_uniform")),
+            (systems.PV1K, {}, rgb + ("place_rows_uniform",)),
+            (systems.NES, {}, common + ("place_rows_uniform",)))
+
+
+def k2_counter(kw):
+    """The launch count that K2's mode on this path adds to."""
+    if kw.get("do_bloom"):
+        return "decode_rows_bloom"
+    return "decode_rows_conv" if "eq_mode" in kw else "decode_rows"
+
+
+def tiles(shards, n, row) -> bool:
+    """The shards [(card, lo, hi), ...] tile [0, n) in order, one on each
+    of the row's first min(len(row), n) cards."""
+    bounds = [(lo, hi) for _, lo, hi in shards]
+    return ([d for d, _, _ in shards] == list(row[:min(len(row), n)])
+            and bounds[0][0] == 0 and bounds[-1][1] == n
+            and all(hi > lo for lo, hi in bounds)
+            and all(a[1] == b[0] for a, b in zip(bounds, bounds[1:])))
+
+
+def check_shards(label, records, counts, grid, n_lines, k2):
+    """Each sharded call of a run over `grid` (records: (tag, [(card, lo,
+    hi), ...]) in call order, chunk by chunk, K1 before K2) split K1's rows
+    or K2's n_lines lines once over its chunk's row of cards; each kernel
+    launched once a shard."""
+    if len(grid[0]) == 1:                  # no row to split over
+        if records:
+            raise SystemExit(f"{label}: a 1-card row split {records}")
+        return
+    per_chunk = 2 if counts["encode_rows"] else 1
+    for j, (tag, shards) in enumerate(records):
+        row = grid[(j // per_chunk) % len(grid)]
+        n = n_lines if tag == "decode_rows" else shards[-1][2]
+        if not tiles(shards, n, row):
+            raise SystemExit(f"{label}: {tag} shards {shards} do not tile "
+                             f"[0, {n}) over {row}")
+    for tag, key in (("encode_rows", "encode_rows"), ("decode_rows", k2)):
+        n = sum(len(s) for t, s in records if t == tag)
+        if counts[key] != n:
+            raise SystemExit(f"{label}: {key} launched {counts[key]} times "
+                             f"for {n} shards")
+
+
+def spatial_case(pipeline, cfg, kw, needed, shape, devs, B, imgs, whole,
+                 records, steps=2):
+    """`steps` steps of B slots over make_mesh(*shape, devs), counted and
+    checked shard by shard; the merged state held to `whole` (step_batch
+    from the same start).  Returns the counts."""
+    from ntsc_crt_tpu_torch.parallel import mesh
+    grid = mesh.make_mesh(*shape, devs)
+    label = f"{path_label(cfg, kw)} batch {B} over {shape[0]}x{shape[1]}"
+
+    def run():
+        chunks = mesh.init_batch(cfg, B, OUTW, OUTH, devices=grid)
+        step = mesh.make_sharded_step(cfg, grid, noise=12, **kw)
+        for i in range(steps):
+            chunks = step(chunks, imgs, *path_args(B, i, devs[0]))
+        return chunks
+    records.clear()
+    counts, chunks = counted(f"{label}, {steps} steps", needed, run)
+    same_leaves(mesh.gather(chunks), whole, label)
+    check_shards(label, records, counts, grid, cfg.lines, k2_counter(kw))
+    return counts
+
+
+def reference(pipeline, cfg, kw, B, imgs, dev, steps=2):
+    st = pipeline.init_batch(cfg, B, OUTW, OUTH, device=dev)
+    for i in range(steps):
+        st = pipeline.step_batch(cfg, st, imgs, *path_args(B, i, dev),
+                                 noise=12, **kw)
+    return st
+
+
+def shard_copy_bytes(pipeline, cfg, B, imgs, dev):
+    """The bytes a shard other than the home one copies in one NTSC step
+    over a 1x2 group: each K1 and K2 call's tensor arguments in, its result
+    out (what crosses between cards when the group's cards differ)."""
+    from ntsc_crt_tpu_torch.ops.kernels import decode, encode
+    from ntsc_crt_tpu_torch.parallel import mesh
+    calls = []
+
+    def measure(name, fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            ins = [v for v in (*a, *k.values()) if torch.is_tensor(v)]
+            calls.append((name, nbytes(*ins), nbytes(out)))
+            return out
+        return run
+    grid = mesh.make_mesh(1, 2, [dev, dev])
+    st = mesh.init_batch(cfg, B, OUTW, OUTH, devices=grid)
+    with patched([(encode, "encode_rows"), (decode, "decode_rows")],
+                 measure):
+        mesh.make_sharded_step(cfg, grid, noise=12)(
+            st, imgs, *path_args(B, 0, dev))
+    return {name: (i, o) for (name, i, o) in calls[1::2]}
+
+
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def host_ms(step, st, imgs, B, steps, dev):
+    """Host ms a step over `steps` steps between two synchronizations of
+    every card."""
+    sync_all()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        st = step(st, imgs, *path_args(B, i, dev))
+    sync_all()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def sync_free_step(cfg, grid, img, dev) -> None:
+    """One batch-1 step over `grid` (after a warm one) under
+    torch.cuda.set_sync_debug_mode("error"): a synchronizing op raises."""
+    from ntsc_crt_tpu_torch.parallel import mesh
+    st = mesh.init_batch(cfg, 1, OUTW, OUTH, devices=grid)
+    step = mesh.make_sharded_step(cfg, grid, noise=12)
+    st = step(st, img, *path_args(1, 0, dev))
+    sync_all()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = step(st, img, *path_args(1, 1, dev))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync_all()
+
+
+def phase_spatial(pipeline, systems, dev, card):
+    """make_sharded_step over make_mesh(1, 2) and make_mesh(2, 2) of this
+    card repeated: every main path, each step's state held to step_batch's
+    at 0 LSB, K1 and K2 split once over each row (parallel.spatial's
+    _INSPECT record) and launched once a shard; K7, K8 and K9 through
+    their op entries over a group of two; one spatial batch-1 step under
+    set_sync_debug_mode("error"); host ms at NTSC batch 1 and 512, 1x1
+    against 1x2.  Returns the launches."""
+    from ntsc_crt_tpu_torch.ops import filters
+    from ntsc_crt_tpu_torch.ops.kernels import decode, rowfilters, scanconv
+    from ntsc_crt_tpu_torch.parallel import mesh, spatial
+    launches = dict.fromkeys(ORIGIN, 0)
+    records = []
+    spatial._INSPECT = lambda tag, shards: records.append((tag, shards))
+    img1 = frames_for(systems.NTSC, 1, OUTH, OUTW, 1250, dev)
+    imgsB = frames_for(systems.NTSC, MAIN_BATCH, 240, 320, 1251, dev)
+    try:
+        for cfg, kw, needed in main_paths(systems):
+            if cfg is systems.NTSC and not kw:
+                cases = ((1, img1, ((1, 2),)),
+                         (MAIN_BATCH, imgsB, ((1, 2), (2, 2))))
+            else:
+                cases = ((2, frames_for(cfg, 2, 240, 320, 1252, dev),
+                          ((1, 2), (2, 2))),)
+            for B, imgs, shapes in cases:
+                whole = reference(pipeline, cfg, kw, B, imgs, dev)
+                for shape in shapes:
+                    counts = spatial_case(
+                        pipeline, cfg, kw, needed, shape,
+                        [dev] * (shape[0] * shape[1]), B, imgs, whole,
+                        records)
+                    for k, n in counts.items():
+                        launches[k] += n
+        print("spatial: make_sharded_step over 1x2 and 2x2 of one card "
+              "equals step_batch (2 steps, every leaf) on every main path "
+              "(NTSC batch 1 and 512, the others batch 2); K1 and K2 split "
+              "once over each row, a launch a shard", flush=True)
+
+        # K7, K8 and K9 through their op entries over a group of two
+        B = KERNEL_BATCHES[-1]
+        seen = capture_kernel_inputs(pipeline, systems.NTSC, B,
+                                     ("encode_rows", "decode_rows"), dev, {})
+        yiq, c = k7_args(*seen["encode_rows"])
+        a, k = seen["decode_rows"]
+        want = (rowfilters.iir_lowpass_rows_plain(yiq, c),
+                decode.decode_rows(*a, **k))
+        out = {}
+
+        def ops():
+            with spatial.line_sharding([dev, dev]):
+                out["iir"] = filters.iir_lowpass(yiq, c)
+                out["unfused"] = scanconv.decode_rows_unfused(*a, **k)
+        records.clear()
+        counts, _ = counted("op entry points over a group of two",
+                            ("iir_lowpass_rows", "eq_threeband_rows",
+                             "scanconv_rows"), ops)
+        torch.cuda.synchronize()
+        if not (torch.equal(out["iir"], want[0])
+                and torch.equal(out["unfused"], want[1])):
+            raise SystemExit("the op entries over a group of two differ")
+        Bk, Lk = a[1].shape
+        rows = {"iir_lowpass_rows": yiq[..., 0].numel(),
+                "eq_threeband_rows": 3 * Bk * Lk, "scanconv_rows": Bk * Lk}
+        if [t for t, _ in records] != list(rows) or any(
+                not tiles(s, rows[t], [dev, dev]) or counts[t] != 2
+                for t, s in records):
+            raise SystemExit(f"op entries over a group of two: {records}, "
+                             f"launches {counts}")
+        for k_, n in counts.items():
+            launches[k_] += n
+        print(f"spatial: iir_lowpass, eq_threeband and scanconv_rows split "
+              f"their rows in two (batch {B}), a launch a shard, equal to "
+              "one call", flush=True)
+    finally:
+        spatial._INSPECT = None
+
+    # no synchronizing op inside a spatial step
+    sync_free_step(systems.NTSC, mesh.make_mesh(1, 2, [dev, dev]), img1, dev)
+    print("spatial: an NTSC batch-1 step over 1x2 ran under "
+          "set_sync_debug_mode('error'): no synchronizing op", flush=True)
+
+    # bytes a second shard would copy, and host ms 1x1 against 1x2
+    for B, imgs in ((1, img1), (MAIN_BATCH, imgsB)):
+        moved = shard_copy_bytes(pipeline, systems.NTSC, B, imgs, dev)
+        print(f"spatial: NTSC batch {B} over 1x2, the second shard's "
+              "copies a step (bytes in, out): " + ", ".join(
+                  f"{k} {i}, {o}" for k, (i, o) in moved.items()),
+              flush=True)
+    for B, imgs, steps in ((1, img1, 20), (MAIN_BATCH, imgsB, 5)):
+        ms = {}
+        for shape in ((1, 1), (1, 2), (1, 2), (1, 1)):
+            grid = mesh.make_mesh(*shape, [dev] * shape[1])
+            st = mesh.init_batch(systems.NTSC, B, OUTW, OUTH, devices=grid)
+            step = mesh.make_sharded_step(systems.NTSC, grid, noise=12)
+            st = step(st, imgs, *path_args(B, 0, dev))
+            ms.setdefault(shape, []).append(
+                host_ms(step, st, imgs, B, steps, dev))
+        one, two = ms[(1, 1)], ms[(1, 2)]
+        print(f"spatial: NTSC batch {B}, host ms a step over {steps} steps "
+              f"(1x1, 1x2, 1x2, 1x1 on one card): {one[0]:.4f}, "
+              f"{two[0]:.4f}, {two[1]:.4f}, {one[1]:.4f}; 1x2 / 1x1 "
+              f"{sum(two) / sum(one):.3f}  [{card}]", flush=True)
+    return launches
+
+
+def phase_demo(dev, card):
+    """python -m ntsc_crt_tpu_torch.demo on the card into a temporary
+    directory (every system, counted), its NTSC files held to the same demo
+    on the CPU.  Returns the launches."""
+    import io
+    import tempfile
+
+    from ntsc_crt_tpu_torch import demo
+    from ntsc_crt_tpu_torch.models import systems
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        said = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(said):
+                return demo.main([str(tmp / "card")])
+        ms, (launches, rc) = timed(lambda: counted(
+            "demo, every system",
+            ("encode_rows", "decode_rows", "hsync_chase", "ccf_ema",
+             "vhs_region_b_entries", "place_rows_uniform"), run))
+        names = {p.name for p in (tmp / "card").iterdir()}
+        expected = {"input.ppm"} | {f"{n.lower()}{s}.ppm"
+                                    for n in systems.SYSTEMS
+                                    for s in ("", "_analog")}
+        if rc != 0 or names != expected:
+            raise SystemExit(f"demo: rc {rc}, files {sorted(names)}")
+        every = systems.SYSTEMS
+        systems.SYSTEMS = {"NTSC": systems.NTSC}
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                demo.main([str(tmp / "cpu")], device="cpu")
+        finally:
+            systems.SYSTEMS = every
+        for n in ("input.ppm", "ntsc.ppm", "ntsc_analog.ppm"):
+            card_, cpu = ((tmp / d / n).read_bytes() for d in ("card", "cpu"))
+            if card_ != cpu:
+                raise SystemExit(f"demo: the card's {n} differs from the CPU")
+    print(f"demo: {len(every)} systems, {len(names)} files in {ms:.1f} ms "
+          f"({said.getvalue().count('wrote')} reported); NTSC's equal the "
+          f"CPU's  [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1805,24 +2176,12 @@ def main() -> int:
 
     # 6. the main paths, each counted on its own; a kernel's launches are
     # its counts summed over the paths and the op entry points
-    common = ("hsync_chase", "ccf_ema", "decode_rows")
-    rgb = common + ("encode_rows",)
-    paths = ((systems.NTSC, {}, rgb + ("place_rows_uniform",)),
-             (systems.NTSCVHS, VHS_KW,
-              rgb + ("place_rows_uniform", "vhs_region_b_entries")),
-             (systems.NTSC, BLOOM,
-              ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows_bloom",
-               "bloom_line_width")),
-             (systems.NTSC, CONV7,
-              ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows_conv",
-               "place_rows_uniform")),
-             (systems.PV1K, {}, rgb + ("place_rows_uniform",)),
-             (systems.NES, {}, common + ("place_rows_uniform",)))
-    for cfg, kw, needed in paths:
+    for cfg, kw, needed in main_paths(systems):
         for k, n in phase_path(pipeline, cfg, kw, needed, card, dev).items():
             launches[k] += n
 
     # 7. the other variants and encoder families: one step each
+    rgb = ("hsync_chase", "ccf_ema", "decode_rows", "encode_rows")
     phase_variant(pipeline, systems.NTSC, FIXED_SYNC,
                   ("encode_rows", "ccf_ema", "decode_rows",
                    "place_rows_uniform"), dev)
@@ -1833,6 +2192,12 @@ def main() -> int:
     # 8. video and front ends
     for k, n in phase_video(pipeline, systems, dev, card).items():
         launches[k] += n
+
+    # 9. the spatial split and the demo
+    for phase in (lambda: phase_spatial(pipeline, systems, dev, card),
+                  lambda: phase_demo(dev, card)):
+        for k, n in phase().items():
+            launches[k] += n
 
     def reported(k):          # a kernel's first label, at the last batch
         label = next(iter(table[k]))[0]

@@ -17,7 +17,9 @@ CRT_DO_HSYNC = 0).  Each stage keeps one formulation, the plain one:
    K4), then the decode waves (4-sample IQ extraction, or the 5-sample
    hue-rotated tables); with bloom the line sums and their energy
    EMA (kernel bloom_line_width) give each line its width.
-4. **Line decode** — alignment, Y/I/Q, EQ and scan conversion in kernel K2.
+4. **Line decode** — alignment, Y/I/Q, EQ and scan conversion in kernel K2,
+   the one stage split by line over a spatial group of cards
+   (parallel/spatial.py); the others run whole on the frame's card.
 5. **Row placement** — kernel K6 where every line covers the same number
    of rows and the knobs are host ints; otherwise each output row takes the
    last line that covers it, blended with the previous frame if asked
@@ -38,6 +40,7 @@ from ntsc_crt_tpu_torch.ops.fixedpoint import (cdiv, crem, np_sincos14,
                                                posmod, sincos14)
 from ntsc_crt_tpu_torch.ops.kernels import ccf, decode, hsync, place, vhs
 from ntsc_crt_tpu_torch.models.modulate import _b
+from ntsc_crt_tpu_torch.parallel import spatial
 
 Knob = Union[int, torch.Tensor]
 
@@ -408,11 +411,13 @@ def demodulate_core(
         wvQ_l = torch.gather(wvQ_l, 2, rot)
         bloom = dict(bloom_dx=dx_l.contiguous(),
                      bloom_lidx=lidx_l.contiguous())
-    rgb = decode.decode_rows(
-        rolled4, shifts.contiguous(), wvI_l.contiguous(), wvQ_l.contiguous(),
-        bright[:, None].expand(B, L).contiguous(),
+    # K2, split by line over the active spatial group: line l reads rolled4
+    # rows l + 3 and l + 4, so a block of lines [lo, hi) takes [lo, hi + 4)
+    rgb = spatial.shard_lines_call(
+        decode.decode_rows, rolled4, shifts.contiguous(), wvI_l.contiguous(),
+        wvQ_l.contiguous(), bright[:, None].expand(B, L).contiguous(),
         _b(mon.contrast, B, dev)[:, None].expand(B, L).contiguous(),
-        row0=3, coefs=coefs, av_len=AV, outw=outw, **bloom)
+        halo={0: 4}, row0=3, coefs=coefs, av_len=AV, outw=outw, **bloom)
     out_new = _place_rows(rgb, out_prev, beg_l, end_l, active_l, mon.blend,
                           mon.scanlines, outh, valid=valid,
                           field_px=field_px, v_fac=v_fac)

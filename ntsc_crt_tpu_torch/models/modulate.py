@@ -32,6 +32,7 @@ from ntsc_crt_tpu_torch.models.systems import CHROMA_CHECKERED, SystemConfig
 from ntsc_crt_tpu_torch.ops import filters, lcg
 from ntsc_crt_tpu_torch.ops.fixedpoint import cdiv, crem, i32, sincos14
 from ntsc_crt_tpu_torch.ops.kernels import encode
+from ntsc_crt_tpu_torch.parallel import spatial
 
 
 def _b(x, B: int, device) -> torch.Tensor:
@@ -167,6 +168,16 @@ def _iir_coefs(cfg: SystemConfig):
                  for f in (cfg.y_freq, cfg.i_freq, cfg.q_freq))
 
 
+def _encode_lines(img, sy, modI, modQ, gain, base, **static) -> torch.Tensor:
+    """K1 (encode.encode_rows) over the picture rows, split by row over the
+    active spatial group (parallel/spatial.py): sy and the carrier tables
+    by row, the image and gain/base whole (a row may read any source
+    row)."""
+    return spatial.shard_lines_call(
+        encode.encode_rows, img.to(torch.uint8).contiguous(), sy.contiguous(),
+        modI, modQ, gain, base, whole=(0, 4, 5), **static)
+
+
 def _store_active(analog: torch.Tensor, ire: torch.Tensor, xo: int,
                   yo: int) -> torch.Tensor:
     """Write the active block at (yo, xo) with the reference's FLAT indexing
@@ -269,12 +280,10 @@ def modulate_rgb(
 
     per_row = lambda m: (m * ph[:, None])[:, None].expand(  # noqa: E731
         B, desth, CC).contiguous()
-    ire = encode.encode_rows(
-        img.to(torch.uint8).contiguous(), sy.contiguous(), per_row(ccmodI),
-        per_row(ccmodQ),
-        cdiv(cfg.white_level * white_point, 100),
-        cfg.black_level + black_point, coefs=_iir_coefs(cfg),
-        xo_mod=xo % CC, destw=destw)
+    ire = _encode_lines(img, sy, per_row(ccmodI), per_row(ccmodQ),
+                        cdiv(cfg.white_level * white_point, 100),
+                        cfg.black_level + black_point, coefs=_iir_coefs(cfg),
+                        xo_mod=xo % CC, destw=destw)
     return _store_active(analog, ire, xo, yo), ccf
 
 
@@ -368,12 +377,11 @@ def _encode_vper(cfg: SystemConfig, analog, img, sy, modI, modQ,
     class (y + yo) % VP, then the store at (yo, xo)."""
     desth = sy.shape[1]
     phr = (torch.arange(desth, device=analog.device) + yo) % cfg.cc_vper
-    ire = encode.encode_rows(
-        img.to(torch.uint8).contiguous(), sy.contiguous(),
-        modI[:, phr].contiguous(), modQ[:, phr].contiguous(),
-        cdiv(cfg.white_level * white_point, 100),
-        cfg.black_level + black_point, coefs=coefs,
-        xo_mod=xo % cfg.cc_samples, destw=destw)
+    ire = _encode_lines(img, sy, modI[:, phr].contiguous(),
+                        modQ[:, phr].contiguous(),
+                        cdiv(cfg.white_level * white_point, 100),
+                        cfg.black_level + black_point, coefs=coefs,
+                        xo_mod=xo % cfg.cc_samples, destw=destw)
     return _store_active(analog, ire, xo, yo)
 
 

@@ -12,7 +12,9 @@ Both round or truncate on every sample, so the recurrences are serial along
 x.  ``iir_lowpass`` and ``eq_threeband`` flatten the lead dims to rows, as
 the JAX ops do, and hand them to kernels K7 and K8 (ops/kernels/
 rowfilters.py): a CUDA tensor launches the kernel, a CPU tensor marches x in
-a Python loop, vectorised over every row.  The HIPASS form of the IIR and
+a Python loop, vectorised over every row.  Under a spatial group
+(parallel/spatial.py) the rows split over its cards, as the JAX ops' do
+(filters.py:135, :176).  The HIPASS form of the IIR and
 the convolution EQ stay plain torch on every device, as in the JAX package.
 """
 
@@ -33,6 +35,7 @@ from ntsc_crt_tpu_torch.ops.fixedpoint import (
 )
 from ntsc_crt_tpu_torch.ops.kernels import rowfilters
 from ntsc_crt_tpu_torch.ops.kernels.rowfilters import EQ_P
+from ntsc_crt_tpu_torch.parallel import spatial
 
 
 class EQCoefs(NamedTuple):
@@ -78,7 +81,8 @@ def iir_lowpass(s: torch.Tensor, c, hipass: bool = False) -> torch.Tensor:
         s = i32(s)
         return s - rowfilters.iir_lowpass_rows_plain(s, c)
     rows, (crow,) = _rows(s, (c,))
-    return rowfilters.iir_lowpass_rows(rows, crow).reshape(s.shape)
+    return spatial.shard_rows_call(rowfilters.iir_lowpass_rows, rows,
+                                   crow).reshape(s.shape)
 
 
 def eq_threeband(s: torch.Tensor, lf, hf, g_lo, g_mid, g_hi) -> torch.Tensor:
@@ -86,7 +90,8 @@ def eq_threeband(s: torch.Tensor, lf, hf, g_lo, g_mid, g_hi) -> torch.Tensor:
     (crt_core.c:198-233).  s: int32 [..., n]; coefficients broadcastable to
     s[..., 0], so Y/I/Q can ride a channel axis in one march."""
     rows, cs = _rows(s, (lf, hf, g_lo, g_mid, g_hi))
-    return rowfilters.eq_threeband_rows(rows, *cs).reshape(s.shape)
+    return spatial.shard_rows_call(rowfilters.eq_threeband_rows, rows,
+                                   *cs).reshape(s.shape)
 
 
 # taps -> (weights, shift) of the convolution EQ builds (crt_core.c:130-145);

@@ -14,7 +14,9 @@ csrc/scanconv.cu.
 (``ntsc_crt_tpu/models/demodulate.py:983-1017, 1032-1034, 1061-1073``) with
 K2's contract: align, demodulate, the 3-band EQ through
 ``filters.eq_threeband`` (K8), then K9.  It computes what K2 fuses, so the
-two are held equal; the pipeline itself decodes through K2.
+two are held equal; the pipeline itself decodes through K2.  Under a
+spatial group K8 and K9 each split their rows over its cards
+(parallel/spatial.py), as at JAX ``demodulate.py:1067``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ntsc_crt_tpu_torch.ops import fastpath, filters
+from ntsc_crt_tpu_torch.parallel import spatial
 
 # kernel launches since the last reset (read by chip_smoke.py)
 LAUNCHES = 0
@@ -108,8 +111,9 @@ def decode_rows_unfused(rows: torch.Tensor, shifts: torch.Tensor,
                              device=rows.device) for k in range(5)]
     eqd = filters.eq_threeband(stacked, *per_chan)
     flat = lambda v: v.reshape(B * L, av_len).contiguous()  # noqa: E731
-    packed = scanconv_rows(flat(eqd[:, :, 0] << 4), flat(eqd[:, :, 1] >> 3),
-                           flat(eqd[:, :, 2] >> 3),
-                           contrast.reshape(B * L).contiguous(), outw=outw)
+    packed = spatial.shard_rows_call(
+        scanconv_rows, flat(eqd[:, :, 0] << 4), flat(eqd[:, :, 1] >> 3),
+        flat(eqd[:, :, 2] >> 3), contrast.reshape(B * L).contiguous(),
+        outw=outw)
     rgb = torch.stack([packed >> 16, packed >> 8, packed], dim=-1) & 0xFF
     return rgb.to(torch.uint8).reshape(B, L, outw, 3)

@@ -1,18 +1,23 @@
-"""Frame slots split over CUDA cards.
+"""Frame slots split over CUDA cards, and each frame's lines over a group.
 
-Counterpart of ``ntsc_crt_tpu/parallel/mesh.py`` on its data axis.  Frames
-are independent apart from each slot's small cross-frame state (sync
+Counterpart of ``ntsc_crt_tpu/parallel/mesh.py``.  A mesh is an n_data x
+n_spatial grid of cards (make_mesh).  On the `data` axis frames are
+independent apart from each slot's small cross-frame state (sync
 estimates, ccf EMA, PRNG streams, blend buffer), so a batch of slots splits
-into contiguous chunks, one a card, and each card steps its own chunk; no
-step needs another card's data.  There is no mesh object and no spatial
-(scanline) axis: each card decodes its slots whole.
+into contiguous chunks, one a mesh row, and chunk d lives and steps on its
+row's first card, mesh[d][0]; no step needs another chunk's data.  On the
+`spatial` axis the row's cards split each frame's lines for the
+row-independent kernels (parallel/spatial.py): chunk d steps inside
+``spatial.line_sharding(mesh[d])``.
 
-    chunks = mesh.init_batch(cfg, 512, 640, 480, devices=["cuda:0", "cuda:1"])
-    step = mesh.make_sharded_step(cfg, ["cuda:0", "cuda:1"], noise=12)
+    m = mesh.make_mesh(2, 2)               # cuda:0-3: chunks on 0 and 2
+    chunks = mesh.init_batch(cfg, 512, 640, 480, devices=m)
+    step = mesh.make_sharded_step(cfg, m, noise=12)
     chunks = step(chunks, imgs, fields, frames, dcos)
     states = mesh.gather(chunks)          # one CRTState of all 512 slots
 
-devices=None means every CUDA card, and raises where there is none.
+A list of devices stands for an n x 1 mesh (slots only).  devices=None
+means every CUDA card, and raises where there is none.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import torch
 from ntsc_crt_tpu_torch.models import pipeline
 from ntsc_crt_tpu_torch.models.demodulate import MonitorParams
 from ntsc_crt_tpu_torch.models.systems import SystemConfig
+from ntsc_crt_tpu_torch.parallel import spatial
+from ntsc_crt_tpu_torch.parallel.spatial import split_bounds
 
 
 def resolve_devices(devices=None) -> List[torch.device]:
@@ -38,28 +45,53 @@ def resolve_devices(devices=None) -> List[torch.device]:
     return devices
 
 
-def split_bounds(batch: int, n: int):
-    """[lo, hi) of each of n contiguous chunks of `batch` slots; the first
-    batch % n chunks take one slot more."""
-    if batch < n:
-        raise ValueError(f"{batch} slots cannot fill {n} devices")
-    q, r = divmod(batch, n)
-    bounds, lo = [], 0
-    for i in range(n):
-        hi = lo + q + (i < r)
-        bounds.append((lo, hi))
-        lo = hi
-    return bounds
+class Mesh:
+    """An n_data x n_spatial grid of torch.devices: row d is data chunk d's
+    spatial group, its first card the chunk's home.  `shape` maps the axis
+    names to the grid's sizes, as jax.sharding.Mesh.shape does."""
+
+    def __init__(self, rows: Sequence[Sequence[torch.device]]):
+        self.rows = [list(r) for r in rows]
+        self.shape = {spatial.DATA_AXIS: len(self.rows),
+                      spatial.SPATIAL_AXIS: len(self.rows[0])}
+
+    def __getitem__(self, d: int) -> List[torch.device]:
+        return self.rows[d]
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+
+def make_mesh(n_data: Optional[int] = None, n_spatial: int = 1,
+              devices=None) -> Mesh:
+    """The devices as an n_data x n_spatial grid, row by row; n_data=None
+    puts every device not on `spatial` on `data`.  devices=None means
+    every CUDA card, and raises where there is none."""
+    devices = resolve_devices(devices)
+    if n_data is None:
+        n_data = len(devices) // max(n_spatial, 1)
+    if n_data < 1 or n_spatial < 1 or n_data * n_spatial != len(devices):
+        raise ValueError(f"{n_data}x{n_spatial} != {len(devices)} devices")
+    return Mesh([devices[d * n_spatial:(d + 1) * n_spatial]
+                 for d in range(n_data)])
+
+
+def as_mesh(devices=None) -> Mesh:
+    """A Mesh as it is; a device list (or None: every card) as n x 1."""
+    if isinstance(devices, Mesh):
+        return devices
+    return Mesh([[d] for d in resolve_devices(devices)])
 
 
 def init_batch(cfg: SystemConfig, batch: int, outw: int, outh: int,
                devices=None) -> List[pipeline.CRTState]:
-    """`batch` per-slot states as contiguous chunks, one on each device,
-    with the noise streams of pipeline.init_batch (rn = 194 + slot,
-    randstate = 1 + slot, numbered over the whole batch)."""
-    devices = resolve_devices(devices)
+    """`batch` per-slot states as contiguous chunks, one on each device of
+    a list, or on the first card of each row of a Mesh, with the noise
+    streams of pipeline.init_batch (rn = 194 + slot, randstate = 1 + slot,
+    numbered over the whole batch)."""
+    homes = [row[0] for row in as_mesh(devices)]
     chunks = []
-    for dev, (lo, hi) in zip(devices, split_bounds(batch, len(devices))):
+    for dev, (lo, hi) in zip(homes, split_bounds(batch, len(homes))):
         st = pipeline.crt_init(cfg, outw, outh, batch=hi - lo, device=dev)
         chunks.append(st._replace(
             rn=torch.arange(194 + lo, 194 + hi, dtype=torch.int32,
@@ -94,8 +126,10 @@ def make_batched_step(cfg: SystemConfig, *, noise=0,
 
 def make_sharded_step(cfg: SystemConfig, devices=None, *, noise=0,
                       mon: Optional[MonitorParams] = None, **step_kw):
-    """fn(chunks, imgs, fields, frames, dcos) -> chunks: each device steps
-    its chunk of the slots (from init_batch).  imgs, fields, frames and
+    """fn(chunks, imgs, fields, frames, dcos) -> chunks: each device of a
+    list, or each row of a Mesh, steps its chunk of the slots (from
+    init_batch) on the chunk's card, a row splitting each frame's lines
+    over its cards (spatial.line_sharding).  imgs, fields, frames and
     dcos (and any (B,) tensor among noise and the `mon` knobs) cover the
     whole batch on any device; each chunk's rows are copied to its device.
     Each torch op runs on its tensors' card and each kernel launch makes
@@ -104,25 +138,26 @@ def make_sharded_step(cfg: SystemConfig, devices=None, *, noise=0,
     card after card, and a card runs while the host queues the next.  So
     the split gains only where a chunk's device time is longer than the
     host's time to queue a step; at NTSC batch 512 it is not, and the split
-    is slower than one card (chip_smoke.time_mesh)."""
-    devices = resolve_devices(devices)
+    is slower than one card (chip_smoke.time_mesh, time_spatial)."""
+    grid = as_mesh(devices)
     mon = mon or MonitorParams()
 
     def fn(chunks, imgs, fields, frames, dcos):
-        if len(chunks) != len(devices):
-            raise ValueError(f"{len(chunks)} chunks for {len(devices)} "
+        if len(chunks) != len(grid):
+            raise ValueError(f"{len(chunks)} chunks for {len(grid)} "
                              "devices")
         out, lo = [], 0
-        for dev, st in zip(devices, chunks):
+        for row, st in zip(grid, chunks):
             hi = lo + st.analog.shape[0]
 
             def part(x):
-                return x[lo:hi].to(dev) \
+                return x[lo:hi].to(row[0]) \
                     if torch.is_tensor(x) and x.ndim else x
-            out.append(pipeline.step_batch(
-                cfg, st, *(part(x) for x in (imgs, fields, frames, dcos)),
-                noise=part(noise), mon=MonitorParams(*(part(k) for k in mon)),
-                **step_kw))
+            with spatial.line_sharding(row):
+                out.append(pipeline.step_batch(
+                    cfg, st, *(part(x) for x in (imgs, fields, frames, dcos)),
+                    noise=part(noise),
+                    mon=MonitorParams(*(part(k) for k in mon)), **step_kw))
             lo = hi
         if lo != imgs.shape[0]:
             raise ValueError(f"chunks hold {lo} slots, the batch "

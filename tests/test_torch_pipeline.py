@@ -197,7 +197,8 @@ def test_port_imports_no_jax():
             "from ntsc_crt_tpu_torch import cli; "
             "from ntsc_crt_tpu_torch.apps import live, term_live, x11_live; "
             "from ntsc_crt_tpu_torch.models import video; "
-            "from ntsc_crt_tpu_torch.parallel import mesh; "
+            "from ntsc_crt_tpu_torch.parallel import mesh, spatial; "
+            "from ntsc_crt_tpu_torch import demo; "
             "from ntsc_crt_tpu_torch.utils import checkpoint, formats, "
             "imageio, native_io, profiling, testcard; "
             "assert 'jax' not in sys.modules, sorted(sys.modules); "
