@@ -18,21 +18,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    cycles per dependent op that prices every chain below.
 4. kernels — each kernel against its plain torch version on the card, on the
    inputs the paths hand it at batch 1 and 64 (640x480 output): K1
-   encode_rows, K2 decode_rows (3-band), K3 hsync_chase, K4 ccf_ema and K6
-   place_rows_uniform from an NTSC step; K2 in conv mode from an NTSC
-   eq_mode="conv7" step; K2 in bloom mode and bloom_line_width from an NTSC
-   do_bloom step; K4 ccf_ema and K5 vhs_region_b_entries from an NTSCVHS
-   step; K1 with a carrier table a row, K2 on 5-sample chroma at 1920-sample
-   lines, K3 and K4 (VP 5) from a PV1K step; K1 and K4 (VP 3) from a SNES
-   step; K7 on the Y/I/Q rows of the NTSC and PV1K K1 inputs; K8 on the
-   NTSC K2 inputs' Y/I/Q rows, K9 on K8's output, and the unfused chain
-   against K2; K3 and K4 also at batch 512 on NTSC's and PV1K's inputs, K5
-   on NTSCVHS's, bloom_line_width (its line sums included) on the bloom
-   path's, K7 on NTSC's and PV1K's rows and K8 on NTSC's; K10's three
-   patterns at the TPU probe's size.  Exact equality; each side's time from
-   CUDA events (the kernel's also with its calls queued behind a spin
-   kernel, see cuda_ms); each kernel's bound from these inputs (see BOUNDS
-   below); beside K7's and K8's, the time of a device copy of their rows
+   encode_rows, K2 decode_rows (3-band), K3 hsync_chase, K4 ccf_ema, K6
+   place_rows_uniform and K11 inject_noise from an NTSC step; K2 in conv
+   mode from an NTSC eq_mode="conv7" step; K2 in bloom mode and
+   bloom_line_width from an NTSC do_bloom step; K4 ccf_ema, K5
+   vhs_region_b_entries, K11 over region A and K12 vhs_noise_bc from an
+   NTSCVHS step; K1 with a carrier table a row, K2 on 5-sample chroma at
+   1920-sample lines, K3 and K4 (VP 5) from a PV1K step; K1 and K4 (VP 3)
+   from a SNES step; K11 on each of these paths' and on NES's noise inputs;
+   K7 on the Y/I/Q rows of the NTSC and PV1K K1 inputs; K8 on the NTSC K2
+   inputs' Y/I/Q rows, K9 on K8's output, and the unfused chain against K2;
+   K3 and K4 also at batch 512 on NTSC's and PV1K's inputs, K5 and K12 on
+   NTSCVHS's, K11 on every main path's, bloom_line_width (its line sums
+   included) on the bloom path's, K7 on NTSC's and PV1K's rows and K8 on
+   NTSC's; K10's three patterns at the TPU probe's size.  Exact equality;
+   each side's time from CUDA events (the kernel's also with its calls
+   queued behind a spin kernel, see cuda_ms); each kernel's bound from
+   these inputs (see BOUNDS below); beside K7's and K8's, the time of a
+   device copy of their rows
    (y.copy_(x), behind the spin): the bytes' reachable floor.  Then K1-K5,
    bloom_line_width, K7 and K8 at small ragged shapes and edges
    (ragged_cases: partial warps and tiles, shifts before 0 and past H,
@@ -45,8 +48,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    int32, with max_e 0, -1 and 96256, rows whose chunks straddle the
    tensor's end, L past one 256-line pass; K7 and K8 at 1-65 rows and
    1-1487 samples around their lines and ring, every T mod 4, x on and off
-   y's line grid, on full-range samples).  Then one NTSC batch-1 step and
-   one video_exact call of 4 frames under torch.cuda.set_sync_debug_mode: a
+   y's line grid, on full-range samples; K11 at odd batches, NES's rows
+   (N 2 mod 4), region A's odd n, rows shorter than a thread's run and a
+   warp's, input off a 16-byte boundary, and K12 over regions B+C of both
+   parities, at the int32 seeds and knobs, noise 1 << 24 included).  Then
+   one NTSC batch-1 step and one video_exact call of 4 frames under
+   torch.cuda.set_sync_debug_mode: a
    synchronizing op inside the line scan, or one of the port's inside
    video_exact, fails the run; any other is reported with its source line.
 5. goldens — all 11 tags of tests/fixtures/device_parity_goldens.npz (NTSC,
@@ -108,7 +115,8 @@ the data, what this data needs) over the card's int32 source-op rate: the
 probe's `peak` rate measured in phase 3 of this run at the full-card size (a
 source op is often less than one SASS instruction, so this is above the
 issue ceiling of 132 SMs x 128 lanes x clock; the data sheet gives no int32
-rate).  For the serial kernels (K1, K2, K3, K4, K5, bloom_line_width, K7,
+rate; K11's tables count no bytes: they are positions of the generator it
+steps).  For the serial kernels (K1, K2, K3, K4, K5, bloom_line_width, K7,
 K8, K10) the dependent chain of the longest entry is also priced
 (`chain`): the cycles per dependent source op that the probe measured in
 this run (eq1, one warp a scheduler), 260 cycles per dependent load that
@@ -156,6 +164,12 @@ ORIGIN = {  # kernel -> (CUDA source, the Pallas kernel's pallas_call)
                 "ntsc_crt_tpu/ops/pallas/ccf_scan.py:108"),
     "vhs_region_b_entries": ("ntsc_crt_tpu_torch/csrc/vhs.cu",
                              "ntsc_crt_tpu/ops/pallas/vhs_scan.py:98"),
+    # no Pallas kernel: the JAX decoder leaves the noise stage to XLA's
+    # fused elementwise pass
+    "inject_noise": ("ntsc_crt_tpu_torch/csrc/noise.cu",
+                     "ntsc_crt_tpu/models/demodulate.py:128"),
+    "vhs_noise_bc": ("ntsc_crt_tpu_torch/csrc/noise.cu",
+                     "ntsc_crt_tpu/models/demodulate.py:150"),
     "place_rows_uniform": ("ntsc_crt_tpu_torch/csrc/place.cu",
                            "ntsc_crt_tpu/ops/pallas/place_rows.py:255"),
     "iir_lowpass_rows": ("ntsc_crt_tpu_torch/csrc/rowfilters.cu",
@@ -392,6 +406,35 @@ def work_vhs(a, k, out):
         n * 8 * dep()
 
 
+def work_noise(a, k, out):
+    """Bytes: a byte read and a byte written a sample, the seeds, knobs and
+    last states (the tables are positions of the generator the function
+    steps, not data it must read).  Ops: a sample's step, byte (shift, and,
+    subtract), product and shift, add, clamp 2, unpack and pack — 11."""
+    analog, apow, csum, rn, nz = a
+    return nbytes(analog, rn, nz, *out), analog.numel() * 11, None
+
+
+def work_vhs_noise(a, k, out):
+    """Bytes: regions B+C's samples read and written, region B's entry
+    states, region C's three-call factors, the knobs, the band lines and
+    the returned states, and of the band table the entries this data's
+    band tests pass (noise.vhs_noise_bc_draws).  Ops: per sample r1 2, st2
+    1, m1 4, the upper-edge test 3, rC 2, the lower-edge test 5, the pick
+    2, the byte 3, product, shift, add and clamp 5, the addresses 5 — 32;
+    region C's entry 11 more (K5's step 8, the stream's multiply-add 3)."""
+    from ntsc_crt_tpu_torch.ops.kernels import noise
+    x, entB, a3, c3, cs, band_line, nz = a
+    B, nBC = x.shape[0], cs.shape[1]
+    _, _, band = noise.vhs_noise_bc_draws(entB, a3, c3, N=x.shape[1],
+                                          H=k["H"])
+    rows = torch.zeros((8, nBC), dtype=torch.bool, device=x.device)
+    rows[(band_line - 10).long()] |= band     # the (line, sample) pairs read
+    cs_bytes = int(rows.sum()) * cs.element_size()
+    return (2 * B * nBC + nbytes(entB, a3, c3, band_line, nz, *out[1:])
+            + cs_bytes, B * (nBC * 32 + a3.shape[0] * 11), None)
+
+
 def work_iir(a, k, out):
     """Per sample: sub, mul, shift, add, all four on the row's chain."""
     x, c = a
@@ -439,11 +482,17 @@ def bound(work):
 
 class Kernel:
     """One kernel: its wrapper (module attribute `wrapper`), launch counter
-    (module attribute `counter`), plain version and work counter."""
+    (module attribute `counter`), plain version and work counter; `inplace`
+    if it writes its first argument in place (K12)."""
 
-    def __init__(self, mod, wrapper, counter, plain, work):
+    def __init__(self, mod, wrapper, counter, plain, work, inplace=False):
         self.mod, self.wrapper, self.counter = mod, wrapper, counter
-        self.plain, self.work = plain, work
+        self.plain, self.work, self.inplace = plain, work, inplace
+
+    def fresh(self, a):
+        """The arguments a call may take: an in-place kernel's first one
+        copied, so that each call starts from the same values."""
+        return (a[0].clone(), *a[1:]) if self.inplace else a
 
     @property
     def launches(self) -> int:
@@ -456,8 +505,8 @@ class Kernel:
 def kernel_modules():
     """name -> Kernel, for every kernel of ORIGIN."""
     from ntsc_crt_tpu_torch.ops.kernels import (ccf, decode, encode, hsync,
-                                                place, probe, rowfilters,
-                                                scanconv, vhs)
+                                                noise, place, probe,
+                                                rowfilters, scanconv, vhs)
     dec = lambda counter: Kernel(decode, "decode_rows", counter,  # noqa: E731
                                  decode.decode_rows_plain, work_decode)
     return {
@@ -478,6 +527,11 @@ def kernel_modules():
                                        "LAUNCHES",
                                        vhs.vhs_region_b_entries_plain,
                                        work_vhs),
+        "inject_noise": Kernel(noise, "inject_noise", "LAUNCHES",
+                               noise.inject_noise_plain, work_noise),
+        "vhs_noise_bc": Kernel(noise, "vhs_noise_bc", "BC_LAUNCHES",
+                               noise.vhs_noise_bc_plain, work_vhs_noise,
+                               inplace=True),
         "place_rows_uniform": Kernel(place, "place_rows_uniform", "LAUNCHES",
                                      place.place_rows_uniform_plain,
                                      work_place),
@@ -521,10 +575,12 @@ def capture_kernel_inputs(pipeline, cfg, B, names, dev, kw):
     st = pipeline.step_batch(cfg, st, imgs, *path_args(B, 0, dev), noise=12,
                              **kw)
     seen = {}
+    inplace = {mods[n].wrapper: mods[n] for n in names if mods[n].inplace}
 
     def record(wrapper, fn):
         def rec(*a, **k):
-            seen[wrapper] = (a, k)
+            seen[wrapper] = (inplace[wrapper].fresh(a) if wrapper in inplace
+                             else a, k)
             return fn(*a, **k)
         return rec
 
@@ -602,7 +658,7 @@ def check_kernel(name, label, B, a, k, rows):
     both timed; records and prints the row; returns the kernel's result."""
     kd = kernel_modules()[name]
     kern = getattr(kd.mod, kd.wrapper)
-    got, want = kern(*a, **k), kd.plain(*a, **k)
+    got, want = kern(*kd.fresh(a), **k), kd.plain(*kd.fresh(a), **k)
     torch.cuda.synchronize()
     got_t = got if isinstance(got, tuple) else (got,)
     want_t = want if isinstance(want, tuple) else (want,)
@@ -641,14 +697,17 @@ def phase_kernels(pipeline, systems, dev):
     first label being the one its JSON row reports."""
     from ntsc_crt_tpu_torch.ops.kernels import probe, scanconv
     groups = ((systems.NTSC, ("encode_rows", "decode_rows", "hsync_chase",
-                              "ccf_ema", "place_rows_uniform"), {}),
-              (systems.NTSC, ("decode_rows_conv",), CONV7),
-              (systems.NTSC, ("decode_rows_bloom", "bloom_line_width"),
-               BLOOM),
-              (systems.NTSCVHS, ("ccf_ema", "vhs_region_b_entries"), VHS_KW),
+                              "ccf_ema", "place_rows_uniform",
+                              "inject_noise"), {}),
+              (systems.NTSC, ("decode_rows_conv", "inject_noise"), CONV7),
+              (systems.NTSC, ("decode_rows_bloom", "bloom_line_width",
+                              "inject_noise"), BLOOM),
+              (systems.NTSCVHS, ("ccf_ema", "vhs_region_b_entries",
+                                 "inject_noise", "vhs_noise_bc"), VHS_KW),
               (systems.PV1K, ("encode_rows", "decode_rows", "hsync_chase",
-                              "ccf_ema"), {}),
-              (systems.SNES, ("encode_rows", "ccf_ema"), {}))
+                              "ccf_ema", "inject_noise"), {}),
+              (systems.SNES, ("encode_rows", "ccf_ema"), {}),
+              (systems.NES, ("inject_noise",), {}))
     rows = {}
     for cfg, names, kw in groups:
         label = path_label(cfg, kw)
@@ -683,12 +742,16 @@ def phase_scan_kernels(pipeline, systems, dev, batches, rows):
     """K3 and K4 on the inputs NTSC's and PV1K's line scans hand them, K5 on
     NTSCVHS's noise inputs, bloom_line_width on the bloom path's, K7 on the
     Y/I/Q rows of NTSC's and PV1K's K1 inputs and K8 on NTSC's K2 inputs'
-    (DERIVED), each against its plain version at each batch of `batches`,
-    timed and bounded as in phase_kernels."""
-    groups = ((systems.NTSC, ("hsync_chase", "ccf_ema"), {}),
-              (systems.PV1K, ("hsync_chase", "ccf_ema"), {}),
-              (systems.NTSCVHS, ("vhs_region_b_entries",), VHS_KW),
-              (systems.NTSC, ("bloom_line_width",), BLOOM),
+    (DERIVED), K11 on every main path's noise inputs and K12 on NTSCVHS's,
+    each against its plain version at each batch of `batches`, timed and
+    bounded as in phase_kernels."""
+    groups = ((systems.NTSC, ("hsync_chase", "ccf_ema", "inject_noise"), {}),
+              (systems.PV1K, ("hsync_chase", "ccf_ema", "inject_noise"), {}),
+              (systems.NTSCVHS, ("vhs_region_b_entries", "inject_noise",
+                                 "vhs_noise_bc"), VHS_KW),
+              (systems.NTSC, ("bloom_line_width", "inject_noise"), BLOOM),
+              (systems.NTSC, ("inject_noise",), CONV7),
+              (systems.NES, ("inject_noise",), {}),
               (systems.NTSC, ("iir_lowpass_rows", "eq_threeband_rows"), {}),
               (systems.PV1K, ("iir_lowpass_rows",), {}))
     for cfg, names, kw in groups:
@@ -731,6 +794,23 @@ ROW_EDGES = tuple((R, T) for R in (1, 31, 32, 33, 65)
                   for T in (1, 2, 31, 32, 33, 34, 63, 64, 65, 129, 257, 753,
                             1487))
 ROW_OFF_GRID = ((1, 33), (33, 34), (65, 753), (70, 1487))
+# K11 and K12 seeds and knobs, dealt over the slots: the int32 edges, and a
+# knob whose product with the byte wraps int32
+RN_EDGES = (0, 1, -1, -2**31, 2**31 - 1)
+NOISE_EDGES = (0, 7, 127, 1 << 24, -3, 40)
+# (B, N, n, shift, off) of K11 inputs: NES's rows (N 2 mod 4), VHS region A
+# (n odd, the rest copied), rows shorter than a thread's 16-sample run and a
+# warp's 1024 (runs that cross slots and meet n), one sample; the input `off`
+# bytes past a 16-byte boundary (the byte path); shift 16 NTSC's LCG, 17
+# region A's two crt_rand calls (tests/test_torch_noise.py K11_CASES)
+K11_EDGES = ((3, 909 * 262, 909 * 262, 16, 0),
+             (5, 910 * 262, 910 * 262 - 25 * 910 + 1, 17, 0),
+             (33, 7, 5, 16, 0), (33, 7, 5, 17, 1), (3, 1030, 517, 17, 0),
+             (9, 530, 512, 16, 1), (1, 1, 1, 16, 0), (4, 2046, 1023, 17, 3))
+# (B, H, N) of K12 inputs: regions B+C of 25H - 1 samples, odd (H 910, 8, 2)
+# and even (909, 7), after a region A of both parities, at odd B
+K12_EDGES = ((1, 910, 910 * 262), (3, 909, 909 * 262), (33, 7, 174),
+             (5, 8, 260), (3, 2, 80))
 
 
 def ragged_cases(dev):
@@ -745,12 +825,14 @@ def ragged_cases(dev):
     from below 0, spilling, past 2H and wrapping, with max_e 0, -1 and
     96256 (LINE_EDGES); the last four at batch 5 and 512; K7 and K8 at the
     edges of their ring (ROW_EDGES) and with x off y's line grid
-    (ROW_OFF_GRID), on full-range int32 samples, whose sums wrap.  Yields
-    (kernel, label, args, kwargs)."""
+    (ROW_OFF_GRID), on full-range int32 samples, whose sums wrap; K11 and
+    K12 at odd batches, NES's rows, short rows and unaligned input
+    (K11_EDGES, K12_EDGES) at the seed and knob edges.  Yields (kernel,
+    label, args, kwargs)."""
     from ntsc_crt_tpu_torch.models import demodulate as dem
     from ntsc_crt_tpu_torch.models import systems
-    from ntsc_crt_tpu_torch.ops import filters
-    from ntsc_crt_tpu_torch.ops.kernels import decode
+    from ntsc_crt_tpu_torch.ops import filters, lcg
+    from ntsc_crt_tpu_torch.ops.kernels import decode, vhs
     rng = np.random.default_rng(5)
     t = lambda v: torch.as_tensor(np.ascontiguousarray(v), device=dev)  # noqa
     i32 = lambda lo, hi, n: rng.integers(lo, hi, n).astype(np.int32)  # noqa
@@ -842,19 +924,42 @@ def ragged_cases(dev):
         yield "iir_lowpass_rows", label, (x, t(i32(0, 2048, R))), {}
         yield ("eq_threeband_rows", label,
                (x, *(t(v) for v in sets[rng.integers(0, 3, R)].T)), {})
+    deal = lambda v, B: t(np.resize(np.array(v, np.int32), B))  # noqa: E731
+    for B, N, n, shift, off in K11_EDGES:
+        ga, gc = ((lcg.LCG_A, lcg.LCG_B) if shift == 16
+                  else (vhs.A2, vhs.C2))
+        apow, csum = lcg._lcg_tables(n, ga, gc)
+        buf = t(rng.integers(-128, 128, B * N + off).astype(np.int8))
+        yield ("inject_noise", f"B {B}, N {N}, n {n}, shift {shift}"
+               + (f", input {off} bytes past 16" if off else ""),
+               (buf[off:].view(B, N), t(apow.view(np.int32)),
+                t(csum.view(np.int32)), deal(RN_EDGES, B),
+                deal(NOISE_EDGES, B)), dict(shift=shift, ga=ga, gc=gc))
+    for B, H, N in K12_EDGES:
+        nB, nC = 19 * H, 6 * H - 1
+        apow3, csum3 = lcg._lcg_tables(3 * nC, lcg.RAND_A, lcg.RAND_B)
+        a3 = np.concatenate([np.ones(1, np.uint32), apow3[2::3]])[:nC]
+        c3 = np.concatenate([np.zeros(1, np.uint32), csum3[2::3]])[:nC]
+        yield ("vhs_noise_bc", f"B {B}, H {H}, N {N}",
+               (t(rng.integers(-128, 128, (B, N)).astype(np.int8)),
+                vhs.vhs_region_b_entries(deal(RN_EDGES, B), n_steps=nB, H=H),
+                t(a3.view(np.int32)), t(c3.view(np.int32)),
+                t(rng.integers(-64, 65, (8, nB + nC)).astype(np.int32)),
+                deal(range(10, 18), B), deal(NOISE_EDGES, B)), dict(H=H))
 
 
 def phase_ragged(dev):
-    """K1-K5, bloom_line_width, K7 and K8 against their plain versions on the
-    ragged_cases inputs, at 0 LSB (K2's through
+    """K1-K5, bloom_line_width, K7, K8, K11 and K12 against their plain
+    versions on the ragged_cases inputs, at 0 LSB (K2's through
     decode_rows_plain_any_shift: the shifts go below 0)."""
     from ntsc_crt_tpu_torch.ops.kernels import decode
     mods = kernel_modules()
     for name, label, a, k in ragged_cases(dev):
         kd = mods[name]
-        got = getattr(kd.mod, kd.wrapper)(*a, **k)
+        got = getattr(kd.mod, kd.wrapper)(*kd.fresh(a), **k)
         want = (decode.decode_rows_plain_any_shift(*a, **k)
-                if name.startswith("decode_rows") else kd.plain(*a, **k))
+                if name.startswith("decode_rows")
+                else kd.plain(*kd.fresh(a), **k))
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -929,6 +1034,8 @@ VARIANT_PATHS = {
     "ntsc_bloom_line_width": ("bloom_line_width", "NTSC", BLOOM),
     "ntsc_iir_lowpass_rows": ("iir_lowpass_rows", "NTSC", {}),
     "ntsc_eq_threeband_rows": ("eq_threeband_rows", "NTSC", {}),
+    "ntsc_inject_noise": ("inject_noise", "NTSC", {}),
+    "ntsc_vhs_noise_bc": ("vhs_noise_bc", "NTSCVHS", VHS_KW),
 }
 
 
@@ -1561,7 +1668,7 @@ def phase_variant(pipeline, cfg, kw, needed, dev):
 
 VIDEO_GOLDENS = GOLDENS.parent / "video_goldens.npz"
 NTSC_KERNELS = ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows",
-                "place_rows_uniform")
+                "inject_noise", "place_rows_uniform")
 
 
 def same_video_golden(ref, case, st, outs):
@@ -1641,7 +1748,7 @@ def phase_video(pipeline, systems, dev, card):
     from ntsc_crt_tpu_torch.utils import (checkpoint, imageio, native_io,
                                           testcard)
     cfg, vhs = systems.NTSC, systems.NTSCVHS
-    rgb = NTSC_KERNELS[:4]
+    rgb = NTSC_KERNELS[:5]              # without K6 (832x624)
     launches = dict.fromkeys(ORIGIN, 0)
 
     def count(label, needed, run):
@@ -1719,7 +1826,8 @@ def phase_video(pipeline, systems, dev, card):
             with contextlib.redirect_stdout(io.StringIO()):
                 return fn()
         ms, rc = count(f"NTSCVHS video_main, {n} BMP frames",
-                       rgb + ("place_rows_uniform", "vhs_region_b_entries"),
+                       rgb + ("place_rows_uniform", "vhs_region_b_entries",
+                              "vhs_noise_bc"),
                        lambda: timed(lambda: quiet(
                            lambda: cli.video_main(args))))
         _, want = video.video_exact(
@@ -1846,17 +1954,18 @@ def phase_video(pipeline, systems, dev, card):
 def main_paths(systems):
     """(cfg, step keywords, the kernels each step must launch) of the six
     main paths."""
-    common = ("hsync_chase", "ccf_ema", "decode_rows")
+    common = ("hsync_chase", "ccf_ema", "decode_rows", "inject_noise")
     rgb = common + ("encode_rows",)
     return ((systems.NTSC, {}, rgb + ("place_rows_uniform",)),
             (systems.NTSCVHS, VHS_KW,
-             rgb + ("place_rows_uniform", "vhs_region_b_entries")),
+             rgb + ("place_rows_uniform", "vhs_region_b_entries",
+                    "vhs_noise_bc")),
             (systems.NTSC, BLOOM,
              ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows_bloom",
-              "bloom_line_width")),
+              "bloom_line_width", "inject_noise")),
             (systems.NTSC, CONV7,
              ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows_conv",
-              "place_rows_uniform")),
+              "place_rows_uniform", "inject_noise")),
             (systems.PV1K, {}, rgb + ("place_rows_uniform",)),
             (systems.NES, {}, common + ("place_rows_uniform",)))
 
@@ -2111,7 +2220,8 @@ def phase_demo(dev, card):
         ms, (launches, rc) = timed(lambda: counted(
             "demo, every system",
             ("encode_rows", "decode_rows", "hsync_chase", "ccf_ema",
-             "vhs_region_b_entries", "place_rows_uniform"), run))
+             "vhs_region_b_entries", "place_rows_uniform", "inject_noise",
+             "vhs_noise_bc"), run))
         names = {p.name for p in (tmp / "card").iterdir()}
         expected = {"input.ppm"} | {f"{n.lower()}{s}.ppm"
                                     for n in systems.SYSTEMS
@@ -2181,10 +2291,11 @@ def main() -> int:
             launches[k] += n
 
     # 7. the other variants and encoder families: one step each
-    rgb = ("hsync_chase", "ccf_ema", "decode_rows", "encode_rows")
+    rgb = ("hsync_chase", "ccf_ema", "decode_rows", "encode_rows",
+           "inject_noise")
     phase_variant(pipeline, systems.NTSC, FIXED_SYNC,
                   ("encode_rows", "ccf_ema", "decode_rows",
-                   "place_rows_uniform"), dev)
+                   "place_rows_uniform", "inject_noise"), dev)
     for cfg in (systems.NTSC_RAINBOW, systems.SNES, systems.TEMPLATE,
                 systems.NESRGB):
         phase_variant(pipeline, cfg, {}, rgb + ("place_rows_uniform",), dev)

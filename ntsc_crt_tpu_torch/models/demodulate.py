@@ -6,9 +6,10 @@ the reference's decode build variants: the 3-band or convolution EQ
 (USE_CONVOLUTION), bloom (CRT_DO_BLOOM) and fixed sync (CRT_DO_VSYNC /
 CRT_DO_HSYNC = 0).  Each stage keeps one formulation, the plain one:
 
-1. **Noise injection** — the serial LCG in closed form (ops/lcg.py), or on
-   the VHS presets the crt_rand tracking noise: closed forms over regions A
-   and C and the serial region-B march in kernel K5.
+1. **Noise injection** — the serial LCG in closed form (ops/lcg.py) in
+   kernel K11, or on the VHS presets the crt_rand tracking noise: K11 over
+   region A, the serial region-B march in kernel K5, and kernel K12's draws
+   over regions B and C from K5's entry states.
 2. **VSYNC recovery** — running sums over the candidate rows and the first
    crossing below the threshold (crt_core.c:369-397); with fixed vsync only
    the field parity, from the clean signal.
@@ -39,6 +40,7 @@ from ntsc_crt_tpu_torch.ops import fastpath, filters, lcg
 from ntsc_crt_tpu_torch.ops.fixedpoint import (cdiv, crem, np_sincos14,
                                                posmod, sincos14)
 from ntsc_crt_tpu_torch.ops.kernels import ccf, decode, hsync, place, vhs
+from ntsc_crt_tpu_torch.ops.kernels import noise as noise_kernels
 from ntsc_crt_tpu_torch.models.modulate import _b
 from ntsc_crt_tpu_torch.parallel import spatial
 
@@ -76,28 +78,30 @@ def _eq_coefs(cfg: SystemConfig):
 # ---------------------------------------------------------------------------
 
 
+def _i32_table(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A uint32 host table as its int32 bit patterns on `device`."""
+    return torch.as_tensor(np.ascontiguousarray(a, np.uint32).view(np.int32),
+                           device=device)
+
+
 @functools.lru_cache(maxsize=8)
 def _noise_tables(cfg: SystemConfig, device: torch.device):
-    """The LCG tables over the field, reduced mod 2^24: the noise byte reads
-    bits 16..23 only, and 24-bit factors keep the product inside int64."""
+    """K11's factors of the LCG over the field: sample i's state is
+    A^(i+1) * rn + B * (A^i + ... + 1) (mod 2^32), int32 (N,) each."""
     apow, csum = lcg._lcg_tables(cfg.input_size, lcg.LCG_A, lcg.LCG_B)
-    shape = (cfg.vres, cfg.hres)
-    return (torch.as_tensor((apow & 0xFFFFFF).astype(np.int64).reshape(shape),
-                            device=device),
-            torch.as_tensor((csum & 0xFFFFFF).astype(np.int64).reshape(shape),
-                            device=device))
+    return _i32_table(apow, device), _i32_table(csum, device)
 
 
 def _inject_noise(cfg: SystemConfig, analog2d: torch.Tensor, rn: torch.Tensor,
                   noise: torch.Tensor):
-    """crt_core.c:346-367, batched: analog2d int8 (B, V, H), rn and noise
-    int32 (B,).  Returns (noisy int8 (B, V, H), rn' int32 (B,))."""
-    a24, c24 = _noise_tables(cfg, analog2d.device)
-    rn24 = (rn.to(torch.int64) & 0xFFFFFF)[:, None, None]
-    byte = (((a24 * rn24 + c24) >> 16) & 0xFF).to(torch.int32) - 0x7F
-    s = analog2d.to(torch.int32) + ((byte * noise[:, None, None]) >> 8)
-    rn_out = lcg.lcg_state(rn, cfg.input_size)
-    return s.clamp(-127, 127).to(torch.int8), rn_out
+    """crt_core.c:346-367, batched, in kernel K11: analog2d int8 (B, V, H),
+    contiguous; rn and noise int32 (B,).  Returns (noisy int8 (B, V, H),
+    rn' int32 (B,))."""
+    apow, csum = _noise_tables(cfg, analog2d.device)
+    out, rn_out = noise_kernels.inject_noise(
+        analog2d.view(analog2d.shape[0], -1), apow, csum, rn, noise,
+        shift=16, ga=lcg.LCG_A, gc=lcg.LCG_B)
+    return out.view(analog2d.shape), rn_out
 
 
 def _vhs_regions(cfg: SystemConfig):
@@ -113,12 +117,11 @@ def _vhs_regions(cfg: SystemConfig):
 
 @functools.lru_cache(maxsize=8)
 def _vhs_tables(cfg: SystemConfig, device: torch.device):
-    """The VHS noise's constant tables on `device`: region A's first-call
-    stream factors mod 2^25 (the noise byte reads bits 17..24 of the state,
-    and 25-bit factors keep the product inside int64); region C's 3-call
-    factors; the band tests' thresholds over regions B+C; and the band
-    sinusoid `cs >> 8` for band_line 10..17 (crt_core.c:353-356), (8, nBC).
-    Also the host ints that close regions A and C."""
+    """The VHS noise's constant tables on `device`, int32: region A's
+    first-call stream, every second crt_rand state from the head state
+    (K11's apow / csum, n0 each); region C's three-call stream from its
+    entry state (a3, c3, nC each); and the band sinusoid `cs >> 8` for
+    band_line 10..17 over regions B+C (crt_core.c:353-356), (8, nB + nC)."""
     N, H = cfg.input_size, cfg.hres
     n0, nB, nC = _vhs_regions(cfg)
     apow, csum = lcg._lcg_tables(2 * n0, lcg.RAND_A, lcg.RAND_B)
@@ -128,76 +131,38 @@ def _vhs_tables(cfg: SystemConfig, device: torch.device):
     iBC = np.arange(n0, N, dtype=np.int64)
     cs = np.stack([np_sincos14(iBC * bl // H * 8192 // 180)[1] >> 8
                    for bl in range(10, 18)])
-    m25 = (1 << 25) - 1
-    t = lambda a, dt=torch.int64: torch.as_tensor(  # noqa: E731
-        np.asarray(a).astype(np.int64), device=device).to(dt)
-    return dict(
-        a25=t(apow[::2] & m25), c25=t(csum[::2] & m25),
-        a3=t(a3), c3=t(c3),
-        thr1=t(N - 6 * H - iBC, torch.int32), thr2=t(N - iBC, torch.int32),
-        cs=t(cs, torch.int32),
-        closeA=(int(apow[-1]), int(csum[-1])),
-        closeC=(int(apow3[-1]), int(csum3[-1])))
+    return dict(apowA=_i32_table(apow[::2], device),
+                csumA=_i32_table(csum[::2], device),
+                a3=_i32_table(a3, device), c3=_i32_table(c3, device),
+                cs=torch.as_tensor(cs.astype(np.int32), device=device))
 
 
 def _inject_noise_vhs(cfg: SystemConfig, analog_flat: torch.Tensor,
                       randstate: torch.Tensor, noise: torch.Tensor):
     """VHS tracking noise (crt_core.c:343-366 under CRT_VHS_NOISE): a
     sinusoidal band wobbles over the last ~16 lines, driven by crt_rand.
-    analog_flat int8 (B, N); randstate and noise int32 (B,).  Returns
-    (noisy int8 (B, N), randstate' int32 (B,), rn' = the last rand value
-    int32 (B,), crt_core.c:359,367).
+    analog_flat int8 (B, N), contiguous; randstate and noise int32 (B,).
+    Returns (noisy int8 (B, N), randstate' int32 (B,), rn' = the last rand
+    value int32 (B,), crt_core.c:359,367).
 
     The rand() calls per sample depend on the draws (C's && short circuit),
-    so the stream is serial; it splits three ways (see _vhs_regions): A and
-    C are closed forms over the LCG tables, B is the serial march of kernel
-    K5, and every noise value of B and C follows in parallel from the entry
-    states K5 emits."""
-    B = analog_flat.shape[0]
-    H = cfg.hres
+    so the stream is serial; it splits three ways (see _vhs_regions): A is
+    kernel K11 over the stream's first calls, B the serial march of kernel
+    K5, and kernel K12 draws every noise value of B and C from the entry
+    states K5 emits (C's in closed form from B's last)."""
     n0, nB, nC = _vhs_regions(cfg)
     tab = _vhs_tables(cfg, analog_flat.device)
     head_st = lcg.crt_rand_step(randstate)                # call 0: band line
     band_line = (crem(lcg.crt_rand_out(head_st), 8) - 4) + 14   # 10..17
-    st0 = lcg.u32(head_st)
-
-    # region A: the first call of each sample, closed form; the byte is
-    # bits 17..24 of the state, so the stream is only needed mod 2^25
-    streamA = tab["a25"][None] * (st0 & ((1 << 25) - 1))[:, None]
-    streamA.add_(tab["c25"][None]).bitwise_right_shift_(17)
-    byteA = streamA.bitwise_and_(0xFF).to(torch.int32).sub_(0x7F)
-    del streamA
-    sA = byteA.mul_(noise[:, None]).bitwise_right_shift_(8)
-    sA.add_(analog_flat[:, :n0])
-    out = torch.empty_like(analog_flat)
-    out[:, :n0] = sA.clamp_(-127, 127)
-    del sA, byteA
-    stA = lcg.to_i32(lcg.mul_u32(tab["closeA"][0], st0) + tab["closeA"][1])
-
-    # region B: the serial march (K5); region C's entry state is one more
-    # step from the last entry
-    entB = vhs.vhs_region_b_entries(stA, n_steps=nB, H=H)   # (B, nB)
-    stC0 = vhs.step(lcg.u32(entB[:, -1]), nB - 1, H)
-
-    # region C: 3 calls a sample, closed form
-    entC = (lcg.mul_u32(tab["a3"][None], stC0[:, None])
-            + tab["c3"][None]) & lcg.MASK32
-    st_final = lcg.to_i32(lcg.mul_u32(tab["closeC"][0], stC0)
-                          + tab["closeC"][1])
-
-    # regions B+C: every draw from the entry states, in parallel
-    ent = torch.cat([lcg.u32(entB), entC], dim=1)         # (B, nB + nC)
-    r1 = lcg.crt_rand_out(lcg.mul_u32(lcg.RAND_A, ent) + lcg.RAND_B)
-    st2 = (lcg.mul_u32(vhs.A2, ent) + vhs.C2) & lcg.MASK32
-    m1 = ((st2 >> 1) % 20).to(torch.int32)
-    cond1 = m1 * H > tab["thr1"][None]
-    rC = lcg.crt_rand_out(lcg.mul_u32(lcg.RAND_A, st2) + lcg.RAND_B)
-    cond2 = H * (1 + rC % 8) < tab["thr2"][None]          # call 3 if cond1
-    csb = tab["cs"][(band_line - 10).long()]              # (B, nB + nC)
-    nn = torch.where(cond1 & cond2, csb, noise[:, None])
-    sBC = analog_flat[:, n0:] + (((((r1 >> 16) & 0xFF) - 0x7F) * nn) >> 8)
-    out[:, n0:] = sBC.clamp_(-127, 127)
-    return out, st_final, r1[:, -1]
+    # region A: sample k's first call is crt_rand state 2k + 1 from head_st,
+    # its byte bits 17..24 of the state; its second call ends the region
+    out, lastA = noise_kernels.inject_noise(
+        analog_flat, tab["apowA"], tab["csumA"], head_st, noise, shift=17,
+        ga=vhs.A2, gc=vhs.C2)
+    stA = lcg.crt_rand_step(lastA)
+    entB = vhs.vhs_region_b_entries(stA, n_steps=nB, H=cfg.hres)
+    return noise_kernels.vhs_noise_bc(out, entB, tab["a3"], tab["c3"],
+                                      tab["cs"], band_line, noise, H=cfg.hres)
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +345,7 @@ def demodulate_core(
 
     if cfg.vhs_noise:
         inp_flat, randstate, rn_new = _inject_noise_vhs(
-            cfg, analog.reshape(B, -1), _b(randstate, B, dev), noise)
+            cfg, analog.view(B, -1), _b(randstate, B, dev), noise)
         inp2d = inp_flat.reshape(analog.shape)
     else:
         inp2d, rn_new = _inject_noise(cfg, analog, _b(rn, B, dev), noise)

@@ -113,6 +113,8 @@ KERNEL_FUNCS = (("encode_rows_kernel", "encode_rows"),
                 ("hsync_chase_kernel", "hsync_chase"),
                 ("ccf_ema_kernel", "ccf_ema"),
                 ("vhs_region_b_kernel", "vhs_region_b_entries"),
+                ("inject_noise_kernel", "inject_noise"),
+                ("vhs_noise_bc_kernel", "vhs_noise_bc"),
                 ("place_rows_kernel", "place_rows_uniform"))
 
 
