@@ -25,13 +25,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    vhs_region_b_entries, K11 over region A and K12 vhs_noise_bc from an
    NTSCVHS step; K1 with a carrier table a row, K2 on 5-sample chroma at
    1920-sample lines, K3 and K4 (VP 5) from a PV1K step; K1 and K4 (VP 3)
-   from a SNES step; K11 on each of these paths' and on NES's noise inputs;
+   from a SNES step; K13 nes_square from a NES step, with and without
+   draw_border (border_color 0x1FF, optimized=False); K11 on each of these
+   paths' and on NES's noise inputs;
    K7 on the Y/I/Q rows of the NTSC and PV1K K1 inputs; K8 on the NTSC K2
    inputs' Y/I/Q rows, K9 on K8's output, and the unfused chain against K2;
    K3 and K4 also at batch 512 on NTSC's and PV1K's inputs, K5 and K12 on
-   NTSCVHS's, K11 on every main path's, bloom_line_width (its line sums
-   included) on the bloom path's, K7 on NTSC's and PV1K's rows and K8 on
-   NTSC's; K10's three patterns at the TPU probe's size.  Exact equality;
+   NTSCVHS's, K13 on NES's, K11 on every main path's, bloom_line_width (its
+   line sums included) on the bloom path's, K7 on NTSC's and PV1K's rows
+   and K8 on NTSC's; K10's three patterns at the TPU probe's size.  Exact
+   equality;
    each side's time from CUDA events (the kernel's also with its calls
    queued behind a spin kernel, see cuda_ms); each kernel's bound from
    these inputs (see BOUNDS below); beside K7's and K8's, the time of a
@@ -51,11 +54,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    y's line grid, on full-range samples; K11 at odd batches, NES's rows
    (N 2 mod 4), region A's odd n, rows shorter than a thread's run and a
    warp's, input off a 16-byte boundary, and K12 over regions B+C of both
-   parities, at the int32 seeds and knobs, noise 1 << 24 included).  Then
+   parities, at the int32 seeds and knobs, noise 1 << 24 included; K13 at
+   PPU sizes 256x240, 1x1 and 255x239, every 9-bit pixel, a picture
+   spilling past HRES or clipped at the field's end, the border at 0x1FF,
+   a field off the 4-byte grid, negative dot-crawl offsets and the black
+   and white points where the int32 sums and the int8 store wrap).  Then
    one NTSC batch-1 step and one video_exact call of 4 frames under
    torch.cuda.set_sync_debug_mode: a
    synchronizing op inside the line scan, or one of the port's inside
-   video_exact, fails the run; any other is reported with its source line.
+   video_exact, fails the run; any other is reported with its source line;
+   and one NES batch-1 step (K13, the border, the unoptimized build) under
+   set_sync_debug_mode("error"): any synchronizing op fails the run.
 5. goldens — all 11 tags of tests/fixtures/device_parity_goldens.npz (NTSC,
    NTSC_b16, NTSCVHS, NTSCVHS_b16, NTSC_bloom, NTSC_conv7, PV1K, PV1K_b16,
    NES, SNES, NESRGB) replayed through step / step_batch on the card,
@@ -76,8 +85,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    rows2 concatenation, the burst gather, K3, K4), each with its device
    time.
 7. variants — one batch-2 step each of fixed sync (do_vsync and do_hsync
-   False: K3 must not launch), NTSC_RAINBOW, SNES, TEMPLATE and NESRGB,
-   held to the CPU's plain path.
+   False: K3 must not launch), NTSC_RAINBOW, SNES, TEMPLATE, NESRGB and
+   NES with draw_border (border_color 0x1FF) and optimized=False, held to
+   the CPU's plain path.
 8. video and front ends — tests/fixtures/video_goldens.npz (the JAX package's
    video_exact, v_fac 4 included, and video_strided) replayed bit-exact;
    then each path counted like the main paths: video_exact of 16 640x480
@@ -170,6 +180,10 @@ ORIGIN = {  # kernel -> (CUDA source, the Pallas kernel's pallas_call)
                      "ntsc_crt_tpu/models/demodulate.py:128"),
     "vhs_noise_bc": ("ntsc_crt_tpu_torch/csrc/noise.cu",
                      "ntsc_crt_tpu/models/demodulate.py:150"),
+    # no Pallas kernel: the JAX encoder leaves NES's square-wave pass
+    # (modulate_nes, and _nes_square_sum4 at :755) to XLA
+    "nes_square": ("ntsc_crt_tpu_torch/csrc/nes.cu",
+                   "ntsc_crt_tpu/models/modulate.py:818"),
     "place_rows_uniform": ("ntsc_crt_tpu_torch/csrc/place.cu",
                            "ntsc_crt_tpu/ops/pallas/place_rows.py:255"),
     "iir_lowpass_rows": ("ntsc_crt_tpu_torch/csrc/rowfilters.cu",
@@ -185,6 +199,7 @@ BLOOM = {"do_bloom": True}
 CONV7 = {"eq_mode": "conv7"}
 VHS_KW = {"do_aberration": 1}
 FIXED_SYNC = {"do_vsync": False, "do_hsync": False}
+NES_BORDER = {"draw_border": True, "border_color": 0x1FF, "optimized": False}
 KERNEL_BATCHES = (1, 64)   # the kernel phase's batch sizes; the JSON line
 #                            reports the last
 MAIN_BATCH = 512           # the main paths' throughput batch
@@ -435,6 +450,29 @@ def work_vhs_noise(a, k, out):
             + cs_bytes, B * (nBC * 32 + a3.shape[0] * 11), None)
 
 
+def work_nes(a, k, out):
+    """Bytes: the PPU pixels read, every field sample written (the pass
+    writes the skeleton and the burst too) and the ccf export, the knobs
+    and the tables.
+    Ops: per picture (and border) sample its sx, PPU load, mask, table row
+    and shared load, and its byte's pack — 10 (csrc/nes.cu), 1 (a word's
+    quarter of a constant store) elsewhere; per slot its stored-byte table,
+    12 x 512 entries of an add, a multiply, a division by 100 (3) and a
+    shift — 6."""
+    analog, ppu, table, *knobs = a
+    B, V, H = analog.shape
+    drawn = np.zeros(V * H, bool)
+    f = ((k["yo"] + np.arange(k["desth"]))[:, None] * H + k["xo"]
+         + np.arange(k["destw"])[None, :])
+    drawn[f[f < V * H]] = True
+    if k["draw_border"]:
+        r0, r1, c0 = k["box"]
+        drawn.reshape(V, H)[r0:r1, c0:] = True
+    n = int(drawn.sum()) * B
+    return (nbytes(ppu, table, *knobs, *out),
+            n * 10 + (B * V * H - n) + B * 12 * 512 * 6, None)
+
+
 def work_iir(a, k, out):
     """Per sample: sub, mul, shift, add, all four on the row's chain."""
     x, c = a
@@ -483,7 +521,7 @@ def bound(work):
 class Kernel:
     """One kernel: its wrapper (module attribute `wrapper`), launch counter
     (module attribute `counter`), plain version and work counter; `inplace`
-    if it writes its first argument in place (K12)."""
+    if it writes its first argument in place (K12, K13)."""
 
     def __init__(self, mod, wrapper, counter, plain, work, inplace=False):
         self.mod, self.wrapper, self.counter = mod, wrapper, counter
@@ -505,7 +543,7 @@ class Kernel:
 def kernel_modules():
     """name -> Kernel, for every kernel of ORIGIN."""
     from ntsc_crt_tpu_torch.ops.kernels import (ccf, decode, encode, hsync,
-                                                noise, place, probe,
+                                                nes, noise, place, probe,
                                                 rowfilters, scanconv, vhs)
     dec = lambda counter: Kernel(decode, "decode_rows", counter,  # noqa: E731
                                  decode.decode_rows_plain, work_decode)
@@ -532,6 +570,8 @@ def kernel_modules():
         "vhs_noise_bc": Kernel(noise, "vhs_noise_bc", "BC_LAUNCHES",
                                noise.vhs_noise_bc_plain, work_vhs_noise,
                                inplace=True),
+        "nes_square": Kernel(nes, "nes_square", "LAUNCHES",
+                             nes.nes_square_plain, work_nes, inplace=True),
         "place_rows_uniform": Kernel(place, "place_rows_uniform", "LAUNCHES",
                                      place.place_rows_uniform_plain,
                                      work_place),
@@ -707,7 +747,8 @@ def phase_kernels(pipeline, systems, dev):
               (systems.PV1K, ("encode_rows", "decode_rows", "hsync_chase",
                               "ccf_ema", "inject_noise"), {}),
               (systems.SNES, ("encode_rows", "ccf_ema"), {}),
-              (systems.NES, ("inject_noise",), {}))
+              (systems.NES, ("nes_square", "inject_noise"), {}),
+              (systems.NES, ("nes_square",), NES_BORDER))
     rows = {}
     for cfg, names, kw in groups:
         label = path_label(cfg, kw)
@@ -742,16 +783,16 @@ def phase_scan_kernels(pipeline, systems, dev, batches, rows):
     """K3 and K4 on the inputs NTSC's and PV1K's line scans hand them, K5 on
     NTSCVHS's noise inputs, bloom_line_width on the bloom path's, K7 on the
     Y/I/Q rows of NTSC's and PV1K's K1 inputs and K8 on NTSC's K2 inputs'
-    (DERIVED), K11 on every main path's noise inputs and K12 on NTSCVHS's,
-    each against its plain version at each batch of `batches`, timed and
-    bounded as in phase_kernels."""
+    (DERIVED), K11 on every main path's noise inputs, K12 on NTSCVHS's and
+    K13 on NES's, each against its plain version at each batch of
+    `batches`, timed and bounded as in phase_kernels."""
     groups = ((systems.NTSC, ("hsync_chase", "ccf_ema", "inject_noise"), {}),
               (systems.PV1K, ("hsync_chase", "ccf_ema", "inject_noise"), {}),
               (systems.NTSCVHS, ("vhs_region_b_entries", "inject_noise",
                                  "vhs_noise_bc"), VHS_KW),
               (systems.NTSC, ("bloom_line_width", "inject_noise"), BLOOM),
               (systems.NTSC, ("inject_noise",), CONV7),
-              (systems.NES, ("inject_noise",), {}),
+              (systems.NES, ("nes_square", "inject_noise"), {}),
               (systems.NTSC, ("iir_lowpass_rows", "eq_threeband_rows"), {}),
               (systems.PV1K, ("iir_lowpass_rows",), {}))
     for cfg, names, kw in groups:
@@ -811,6 +852,25 @@ K11_EDGES = ((3, 909 * 262, 909 * 262, 16, 0),
 # and even (909, 7), after a region A of both parities, at odd B
 K12_EDGES = ((1, 910, 910 * 262), (3, 909, 909 * 262), (33, 7, 174),
              (5, 8, 260), (3, 2, 80))
+# (B, PPU (h, w), every 9-bit pixel, xoffset, yoffset, border_color or None,
+# field offset in bytes) of K13 inputs (tests/test_torch_nes.py CASES):
+# PPU sizes 256x240, 1x1 and 255x239, all 512 pixels with the border at
+# 0x1FF, a picture spilling past HRES, one clipped at the field's end, both
+# with the border, a field off the 4-byte grid (the byte path); the knobs
+# dealt over the slots reach negative dot-crawl offsets and the black and
+# white points where the int32 sums and the int8 store wrap
+NES_EDGES = ((1, (240, 256), False, 0, 0, None, 0),
+             (3, (1, 1), False, 0, 0, None, 0),
+             (3, (239, 255), False, 0, 0, None, 0),
+             (5, (240, 256), True, 0, 0, 0x1FF, 0),
+             (3, (240, 256), False, 100, 0, None, 0),
+             (3, (239, 255), False, 0, 20, None, 0),
+             (33, (240, 256), False, 33, 7, 0x1FF, 0),
+             (3, (240, 256), True, 0, 20, 0x1FF, 1))
+DCO_EDGES = (0, -1, -5, -2**31, 2**31 - 1, 4)
+BLACK_EDGES = (0, -40000, 2**31 - 1, -2**31, 123)
+WHITE_EDGES = (100, 2**31 - 1, -9000, 12345)
+HUE_EDGES = (0, 45, -300, 2**31 - 1)
 
 
 def ragged_cases(dev):
@@ -827,12 +887,13 @@ def ragged_cases(dev):
     edges of their ring (ROW_EDGES) and with x off y's line grid
     (ROW_OFF_GRID), on full-range int32 samples, whose sums wrap; K11 and
     K12 at odd batches, NES's rows, short rows and unaligned input
-    (K11_EDGES, K12_EDGES) at the seed and knob edges.  Yields (kernel,
-    label, args, kwargs)."""
+    (K11_EDGES, K12_EDGES) at the seed and knob edges; K13 at the PPU sizes,
+    pixels, offsets and knobs of NES_EDGES.  Yields (kernel, label, args,
+    kwargs)."""
     from ntsc_crt_tpu_torch.models import demodulate as dem
     from ntsc_crt_tpu_torch.models import systems
     from ntsc_crt_tpu_torch.ops import filters, lcg
-    from ntsc_crt_tpu_torch.ops.kernels import decode, vhs
+    from ntsc_crt_tpu_torch.ops.kernels import decode, nes, vhs
     rng = np.random.default_rng(5)
     t = lambda v: torch.as_tensor(np.ascontiguousarray(v), device=dev)  # noqa
     i32 = lambda lo, hi, n: rng.integers(lo, hi, n).astype(np.int32)  # noqa
@@ -946,10 +1007,38 @@ def ragged_cases(dev):
                 t(a3.view(np.int32)), t(c3.view(np.int32)),
                 t(rng.integers(-64, 65, (8, nB + nC)).astype(np.int32)),
                 deal(range(10, 18), B), deal(NOISE_EDGES, B)), dict(H=H))
+    nes_cfg = systems.NES
+    V, H = nes_cfg.vres, nes_cfg.hres
+    for B, (h, w), every, xoff, yoff, border, off in NES_EDGES:
+        ppu = (np.resize(np.arange(512, dtype=np.uint16), (B, h, w)) if every
+               else rng.integers(0, 1 << 16, (B, h, w)).astype(np.uint16))
+        field = t(rng.integers(-128, 128, B * V * H + off).astype(np.int8))
+        yo = nes_cfg.top + yoff     # the unoptimized build's burst past 240
+        yield ("nes_square", f"B {B}, PPU {w}x{h}, xoffset {xoff}, yoffset "
+               f"{yoff}, border {border}" + (", every pixel" if every else "")
+               + (f", field {off} bytes past 4" if off else ""),
+               (field[off:].view(B, V, H), t(ppu),
+                nes.square_table(torch.device(dev)), deal(DCO_EDGES, B),
+                deal(BLACK_EDGES, B), deal(WHITE_EDGES, B),
+                deal((border or 0, 0x21, -1), B), deal(HUE_EDGES, B),
+                nes.burst_sines(torch.device(dev))),
+               dict(xo=(nes_cfg.av_beg + xoff) & ~3, yo=yo,
+                    destw=nes_cfg.av_len, desth=nes_cfg.lines,
+                    draw_border=border is not None,
+                    box=(nes_cfg.top, nes_cfg.bot + 3, nes_cfg.lav_beg),
+                    vp=nes_cfg.cc_vper, black_level=nes_cfg.black_level,
+                    skeleton=(nes_cfg.sync_beg, nes_cfg.bw_beg, 259,
+                              327 * H // 341, nes_cfg.sync_level,
+                              nes_cfg.blank_level),
+                    burst_box=((0, 259) if yo + nes_cfg.lines > V
+                               else (yo, nes_cfg.lines))
+                    + (nes_cfg.cb_beg, nes_cfg.burst_len),
+                    cc=nes_cfg.cc_samples, vert_step=nes_cfg.vert_step,
+                    burst_level=nes_cfg.burst_level))
 
 
 def phase_ragged(dev):
-    """K1-K5, bloom_line_width, K7, K8, K11 and K12 against their plain
+    """K1-K5, bloom_line_width, K7, K8, K11, K12 and K13 against their plain
     versions on the ragged_cases inputs, at 0 LSB (K2's through
     decode_rows_plain_any_shift: the shifts go below 0)."""
     from ntsc_crt_tpu_torch.ops.kernels import decode
@@ -1036,10 +1125,12 @@ VARIANT_PATHS = {
     "ntsc_eq_threeband_rows": ("eq_threeband_rows", "NTSC", {}),
     "ntsc_inject_noise": ("inject_noise", "NTSC", {}),
     "ntsc_vhs_noise_bc": ("vhs_noise_bc", "NTSCVHS", VHS_KW),
+    "ntsc_nes_square": ("nes_square", "NES", {}),
 }
 
 
-def time_variants(sources, batches=(1, 64, MAIN_BATCH)) -> None:
+def time_variants(sources, batches=(1, 64, MAIN_BATCH),
+                  check: bool = True) -> None:
     """Design runs, on the card: each CUDA source of `sources` — a copy of
     a kernel's csrc/*.cu with its design changed and its entry points kept —
     is built alone, launched through the package's own wrapper, held to the
@@ -1047,7 +1138,10 @@ def time_variants(sources, batches=(1, 64, MAIN_BATCH)) -> None:
     the inputs the kernel's path (VARIANT_PATHS) hands it at each batch;
     every entry point of VARIANT_PATHS that a source defines is timed (a
     copy of csrc/rowfilters.cu: K7 and K8).  The inputs of each kernel and
-    batch are captured once and shared by the variants:
+    batch are captured once and shared by the variants.  check=False times
+    probes instead, copies with a part of the work taken out, whose results
+    differ: each is timed behind the spin and reported equal to the
+    package's kernel or not:
 
         python3 -c "import chip_smoke as c; c.time_variants(['v.cu'])"
     """
@@ -1088,11 +1182,24 @@ def time_variants(sources, batches=(1, 64, MAIN_BATCH)) -> None:
         cfg = getattr(systems, preset)
         for B in batches if users else ():
             a, k = kernel_inputs(pipeline, cfg, B, (name,), dev, kw)[name]
+            kd = kernel_modules()[name]
+            kern = getattr(kd.mod, kd.wrapper)
+            ref = None if check else kern(*kd.fresh(a), **k)
             for src, fns in users:
                 build._lib = types.SimpleNamespace(**fns)
                 try:
-                    check_kernel(name, f"{path_label(cfg, kw)}, {src}", B, a,
-                                 k, rows)
+                    if check:
+                        check_kernel(name, f"{path_label(cfg, kw)}, {src}", B,
+                                     a, k, rows)
+                        continue
+                    got = kern(*kd.fresh(a), **k)
+                    same = all(torch.equal(g, r) for g, r in zip(
+                        *(t if isinstance(t, tuple) else (t,)
+                          for t in (got, ref))))
+                    ms = cuda_ms(lambda: kern(*a, **k), 20, spin=True)
+                    print(f"probe {name} batch {B} ({src}): {ms:.4f} ms "
+                          f"behind a spin, equal to the kernel {same}",
+                          flush=True)
                 finally:
                     build._lib = lib
 
@@ -1141,6 +1248,37 @@ extern "C" int row_copy(const void* x, void* y, int R, int T, void* st) {
     return (int)cudaGetLastError();
 }
 """
+
+
+def time_fills(B=MAIN_BATCH) -> None:
+    """Yardsticks of K13's and K12's bytes, on the card: PyTorch calls that
+    write NES's whole field, fill its picture block (682-byte rows 909
+    apart), copy its PPU frames, and add in place over VHS regions B+C,
+    each timed behind a spin:
+
+        python3 -c "import chip_smoke as c; c.time_fills()"
+    """
+    from ntsc_crt_tpu_torch.models import demodulate as dem
+    from ntsc_crt_tpu_torch.models import systems
+    dev = torch.device("cuda", 0)
+    print(card_line(), flush=True)
+    nes, vhs = systems.NES, systems.NTSCVHS
+    field = torch.zeros((B, nes.vres, nes.hres), dtype=torch.int8, device=dev)
+    block = field[:, nes.top:nes.top + nes.lines,
+                  nes.av_beg - 1:nes.av_beg - 1 + nes.av_len]
+    ppu = torch.zeros((B, 240, 256), dtype=torch.int16, device=dev)
+    ppu2 = torch.empty_like(ppu)
+    _, nB, nC = dem._vhs_regions(vhs)
+    x = torch.zeros((B, vhs.input_size), dtype=torch.int8, device=dev)
+    bc = x[:, vhs.input_size - nB - nC:]
+    for what, fn, moved in (
+            ("fill NES's whole field", lambda: field.fill_(3), field),
+            ("fill NES's picture block", lambda: block.fill_(3), block),
+            ("copy NES's PPU frames", lambda: ppu2.copy_(ppu), ppu),
+            ("add_ in place over VHS regions B+C", lambda: bc.add_(1), bc)):
+        ms = cuda_ms(fn, 20, spin=True)
+        print(f"yardstick {what}, {nbytes(moved):,} bytes: {ms:.4f} ms "
+              "behind a spin", flush=True)
 
 
 def time_row_copies(shapes=((46080, 753), (46080, 768))) -> None:
@@ -1573,6 +1711,27 @@ def phase_syncs(pipeline, systems, dev, gate=True):
         raise SystemExit("video_exact synchronizes the stream")
 
 
+def nes_sync_free(pipeline, systems, dev) -> None:
+    """One NES batch-1 step (K13's path, with the border and the
+    unoptimized build) after a warm one, under
+    torch.cuda.set_sync_debug_mode("error"): a synchronizing op raises."""
+    cfg = systems.NES
+    img = frames_for(cfg, 1, OUTH, OUTW, 1237, dev)
+    st = pipeline.init_batch(cfg, 1, OUTW, OUTH, device=dev)
+    st = pipeline.step_batch(cfg, st, img, *path_args(1, 0, dev), noise=12,
+                             **NES_BORDER)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipeline.step_batch(cfg, st, img, *path_args(1, 1, dev), noise=12,
+                            **NES_BORDER)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("NES batch-1 step (draw_border, optimized=False) ran under "
+          "set_sync_debug_mode('error'): no synchronizing op", flush=True)
+
+
 def counted(label, needed, run):
     """run() with every launch count zeroed just before it and read just
     after; fails unless each kernel of `needed` launched and no other did.
@@ -1967,7 +2126,7 @@ def main_paths(systems):
              ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows_conv",
               "place_rows_uniform", "inject_noise")),
             (systems.PV1K, {}, rgb + ("place_rows_uniform",)),
-            (systems.NES, {}, common + ("place_rows_uniform",)))
+            (systems.NES, {}, common + ("place_rows_uniform", "nes_square")))
 
 
 def k2_counter(kw):
@@ -2221,7 +2380,7 @@ def phase_demo(dev, card):
             "demo, every system",
             ("encode_rows", "decode_rows", "hsync_chase", "ccf_ema",
              "vhs_region_b_entries", "place_rows_uniform", "inject_noise",
-             "vhs_noise_bc"), run))
+             "vhs_noise_bc", "nes_square"), run))
         names = {p.name for p in (tmp / "card").iterdir()}
         expected = {"input.ppm"} | {f"{n.lower()}{s}.ppm"
                                     for n in systems.SYSTEMS
@@ -2278,8 +2437,9 @@ def main() -> int:
     table = phase_kernels(pipeline, systems, dev)
     phase_ragged(dev)
 
-    # the line scan runs without a stream synchronize
+    # the line scan runs without a stream synchronize; NES's step with none
     phase_syncs(pipeline, systems, dev)
+    nes_sync_free(pipeline, systems, dev)
 
     # 5. goldens
     phase_goldens(pipeline, systems, dev)
@@ -2299,6 +2459,9 @@ def main() -> int:
     for cfg in (systems.NTSC_RAINBOW, systems.SNES, systems.TEMPLATE,
                 systems.NESRGB):
         phase_variant(pipeline, cfg, {}, rgb + ("place_rows_uniform",), dev)
+    phase_variant(pipeline, systems.NES, NES_BORDER,
+                  ("hsync_chase", "ccf_ema", "decode_rows", "inject_noise",
+                   "place_rows_uniform", "nes_square"), dev)
 
     # 8. video and front ends
     for k, n in phase_video(pipeline, systems, dev, card).items():

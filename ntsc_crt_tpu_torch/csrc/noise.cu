@@ -48,7 +48,13 @@
 //   last (a broadcast load) and the a3 / c3 tables.
 // Tried (PERF.md): K11 one run a thread (its run in local memory behind a
 // dynamically indexed loop, 57 % of the bound at batch 512; in registers
-// 75 %) and four; K12 a sample a thread (26 %), two and eight.
+// 75 %) and four; K12 a sample a thread (26 %), two and eight; then K12
+// as 4-sample quads a lane on x's 4-byte or 128-byte grid (one to eight a
+// lane, 16-byte loads of the entries), the band sinusoid loaded only where
+// the band test passes, persistent warps that load the next chunk while
+// drawing this one, and this design in one wave of blocks: none beat this
+// one by more than 5 %.  With no draws at all its loads and stores take as
+// long: its memory pattern bounds it.
 #include <climits>
 #include <cstdint>
 

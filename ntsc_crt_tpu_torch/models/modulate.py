@@ -14,9 +14,10 @@ the field is built in three phases:
    family writes every sample.
 2. **Color burst** — per-line constants over the burst window from the hue.
 3. **Active video** — kernel K1 (ops/kernels/encode.py) resamples, converts,
-   bandlimits, modulates and clamps every picture row; `_store_active` places
-   the block in the field.  NES synthesises its square waves in plain torch
-   (the JAX package has no Pallas kernel there).
+   bandlimits, modulates and clamps every picture row;
+   `fastpath.store_active` places the block in the field.  NES's square
+   waves are kernel K13 (ops/kernels/nes.py), which stores its block itself
+   (the JAX package leaves that pass to XLA).
 
 The JAX package's one-hot einsums (its TPU gathers) are plain indexing here.
 """
@@ -29,16 +30,18 @@ import numpy as np
 import torch
 
 from ntsc_crt_tpu_torch.models.systems import CHROMA_CHECKERED, SystemConfig
-from ntsc_crt_tpu_torch.ops import filters, lcg
+from ntsc_crt_tpu_torch.ops import fastpath, filters, lcg
 from ntsc_crt_tpu_torch.ops.fixedpoint import cdiv, crem, i32, sincos14
-from ntsc_crt_tpu_torch.ops.kernels import encode
+from ntsc_crt_tpu_torch.ops.kernels import encode, nes
 from ntsc_crt_tpu_torch.parallel import spatial
 
 
 def _b(x, B: int, device) -> torch.Tensor:
-    """A scalar-or-(B,) parameter as an int32 (B,) tensor on `device`."""
+    """A scalar-or-(B,) parameter as an int32 (B,) tensor on `device`; a
+    Python int wraps to int32 on the host (one fill on the device)."""
     if isinstance(x, (int, np.integer)):
-        return i32(torch.full((B,), int(x), dtype=torch.int64, device=device))
+        v = ((int(x) + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+        return torch.full((B,), v, dtype=torch.int32, device=device)
     return torch.broadcast_to(i32(x, device=device), (B,)).contiguous()
 
 
@@ -178,27 +181,6 @@ def _encode_lines(img, sy, modI, modQ, gain, base, **static) -> torch.Tensor:
         modI, modQ, gain, base, whole=(0, 4, 5), **static)
 
 
-def _store_active(analog: torch.Tensor, ire: torch.Tensor, xo: int,
-                  yo: int) -> torch.Tensor:
-    """Write the active block at (yo, xo) with the reference's FLAT indexing
-    (crt_ntsc.c:322: analog[(x+xo) + (y+yo)*HRES]): a row whose xo + destw
-    exceeds HRES spills into the start of the next row; writes past the
-    final row (UB in the reference) are clipped.  Writes `analog` in place
-    and returns it."""
-    B, desth, destw = ire.shape
-    V, H = analog.shape[1], analog.shape[2]
-    spill = xo + destw - H
-    rows = min(desth, V - yo)
-    if spill <= 0:
-        analog[:, yo:yo + rows, xo:xo + destw] = ire[:, :rows]
-        return analog
-    main_w = destw - spill
-    analog[:, yo:yo + rows, xo:] = ire[:, :rows, :main_w]
-    rows2 = min(desth, V - yo - 1)
-    analog[:, yo + 1:yo + 1 + rows2, :spill] = ire[:, :rows2, main_w:]
-    return analog
-
-
 # ---------------------------------------------------------------------------
 # NTSC (1D carrier tables + CC_PHASE sign, crt_ntsc.c)
 # ---------------------------------------------------------------------------
@@ -284,7 +266,7 @@ def modulate_rgb(
                         cdiv(cfg.white_level * white_point, 100),
                         cfg.black_level + black_point, coefs=_iir_coefs(cfg),
                         xo_mod=xo % CC, destw=destw)
-    return _store_active(analog, ire, xo, yo), ccf
+    return fastpath.store_active(analog, ire, xo, yo), ccf
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +364,7 @@ def _encode_vper(cfg: SystemConfig, analog, img, sy, modI, modQ,
                         cdiv(cfg.white_level * white_point, 100),
                         cfg.black_level + black_point, coefs=coefs,
                         xo_mod=xo % cfg.cc_samples, destw=destw)
-    return _store_active(analog, ire, xo, yo)
+    return fastpath.store_active(analog, ire, xo, yo)
 
 
 def modulate_vper(
@@ -501,81 +483,6 @@ def modulate_nesrgb(
 # NES: square-wave synthesis from PPU pixel indices (crt_nes.c)
 # ---------------------------------------------------------------------------
 
-# amplified IRE levels (crt_nes.c:26-40) as [l][e][lum]
-_NES_T = np.array(
-    [-12042, 0, 34406, 81427,          # 0d 1d 2d 3d
-     -17203, -8028, 19497, 57342,      # emphasized
-     43581, 75693, 112965, 112965,     # 00 10 20 30
-     26951, 52181, 83721, 83721],      # emphasized
-    dtype=np.int64).reshape(2, 2, 4)
-
-
-def _wrap_i8(x: torch.Tensor) -> torch.Tensor:
-    """C signed-char assignment (wrap mod 256): the NES encoder stores
-    unclamped IRE sums (crt_nes.c:190-191)."""
-    return (((x + 128) & 255) - 128).to(torch.int8)
-
-
-def _nes_square_sum4(p: torch.Tensor, phase0: torch.Tensor) -> torch.Tensor:
-    """sum_{j<4} square_sample(p, phase0 + j) (crt_nes.c:21-61), exact —
-    the JAX package's closed form (modulate.py:755-815).
-
-    square_sample is IRE[l][e][lum], bilinear in the bits (l, e) for a fixed
-    lum, so the 4-phase sum is 4*T00 + L*(T10-T00) + E*(T01-T00) +
-    LE*(T11-T10-T01+T00) with L, E, LE the sums of l_j, e_j, l_j*e_j; each
-    lum table is bilinear in lum's two bits; the emphasis masks
-    {0300,0100,0500,0400,0600,0200} reduce to k = (phase>>1) % 6: bit6 iff
-    k<=2, bit7 iff k==0 or k>=4, bit8 iff 2<=k<=4.  p, phase0: broadcastable
-    non-negative int32; no clamp (|S| <= 4*112965)."""
-    hue_p = p & 0x0F
-    lum0 = (p >> 4) & 1
-    lum1 = (p >> 5) & 1
-    lum01 = lum0 & lum1
-    e6, e7, e8 = (p >> 6) & 1, (p >> 7) & 1, (p >> 8) & 1
-    is0 = (hue_p == 0x00).to(torch.int32)
-    not13 = (hue_p != 0x0D).to(torch.int32)
-
-    def blin(t):  # a 4-entry table, bilinear in the lum bits
-        c0, c1, c2, c3 = (int(t[0]), int(t[1] - t[0]), int(t[2] - t[0]),
-                          int(t[3] - t[2] - t[1] + t[0]))
-        return c0 + c1 * lum0 + c2 * lum1 + c3 * lum01
-
-    T = _NES_T
-    t00 = blin(T[0, 0])
-    d10 = blin(T[1, 0] - T[0, 0])
-    d01 = blin(T[0, 1] - T[0, 0])
-    d11 = blin(T[1, 1] - T[1, 0] - T[0, 1] + T[0, 0])
-
-    u = crem(phase0, 12)
-    z = hue_p + u                             # <= 26: two range reductions
-    z = z - torch.where(z >= 12, 12, 0)
-    z = z - torch.where(z >= 12, 12, 0)
-    L = E = LE = 0
-    for j in range(4):
-        mj = u + j
-        k = (mj - torch.where(mj >= 12, 12, 0)) >> 1     # (phase>>1) % 6
-        zj = z + j
-        v = ((zj - torch.where(zj >= 12, 12, 0)) < 6).to(torch.int32)
-        a6 = (k <= 2).to(torch.int32)
-        a7 = ((k == 0) | (k >= 4)).to(torch.int32)
-        a8 = ((k >= 2) & (k <= 4)).to(torch.int32)
-        e = (e6 & a6) | (e7 & a7) | (e8 & a8)
-        l = is0 | (v & not13)
-        L = L + l
-        E = E + e
-        LE = LE + (l & e)
-    total = (t00 << 2) + L * d10 + E * d01 + LE * d11
-    return torch.where(hue_p >= 0x0E, 0, total)           # black columns
-
-
-def _nes_phase(rows: torch.Tensor, dco: torch.Tensor,
-               VP: int) -> torch.Tensor:
-    """phasetab[(row + dco) % VP] = 4 * class (B, n), with C's %: a
-    negative class matches no entry and reads 0, as the JAX package's
-    onehot_pick does."""
-    cls = crem(rows[None, :] + dco[:, None], VP)
-    return torch.where(cls >= 0, 4 * cls, 0)
-
 
 def modulate_nes(
     cfg: SystemConfig,
@@ -587,62 +494,37 @@ def modulate_nes(
     border_color=0, draw_border: bool = False,
     optimized: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """crt_nes.c:106-201 (the optimized build).  The PPU pixels are
-    resampled by index and square_sample is evaluated in closed form
-    (_nes_square_sum4).  draw_border renders the PPU border (NES_BORDER,
-    crt_nes.c:138-161); optimized=False is the NES_OPTIMIZED=0 build
-    (crt_nes.c:204-308), whose only difference is the colour burst on every
-    non-vsync line (0..258), not only on the picture rows.  Plain torch on
-    every device.  Returns (analog', ccf' int32 (B, VP, CC))."""
+    """crt_nes.c:106-201 (the optimized build): kernel K13
+    (ops/kernels/nes.py) writes the whole field — the skeleton, the colour
+    burst and the picture (the PPU pixels resampled by index, the 4-phase
+    square-wave sum, the IRE scale and the int8 wrap) — and returns the
+    burst's ccf export.  The field it is handed gives only its shape: every
+    sample is new, as the reference's setup_field rewrites it.  draw_border
+    renders the PPU border (NES_BORDER, crt_nes.c:138-161); optimized=False
+    is the NES_OPTIMIZED=0 build (crt_nes.c:204-308), whose only difference
+    is the colour burst on every non-vsync line (0..258), not only on the
+    picture rows.  Returns (analog', ccf' int32 (B, VP, CC))."""
     if cfg.kind != "nes":
         raise ValueError(f"{cfg.name}: not the NES encoder")
     dev = analog.device
-    B = analog.shape[0]
-    H, VP = cfg.hres, cfg.cc_vper
-    h, w = ppu.shape[1], ppu.shape[2]
-    ppu = ppu.to(torch.int32) & 0x1FF
-    dco = _b(dot_crawl_offset, B, dev)
-    black_point = _b(black_point, B, dev)[:, None, None]
-    white_point = _b(white_point, B, dev)[:, None, None]
-
+    B, H = analog.shape[0], cfg.hres
     destw, desth = cfg.av_len, cfg.lines
     xo = (cfg.av_beg + xoffset) & ~3
     yo = cfg.top + yoffset
-
-    # burst table (crt_nes.c:123-130): the angle is reduced % 360 first
-    yv = torch.arange(VP, dtype=torch.int32, device=dev)[None, :, None]
-    xv = torch.arange(cfg.cc_samples, dtype=torch.int32, device=dev)
-    n_ang = crem(_b(hue, B, dev)[:, None, None] + xv * (360 // cfg.cc_samples)
-                 + (yv + dco[:, None, None]) * cfg.vert_step + 33, 360)
-    ccburst = sincos14(cdiv(n_ang * 8192, 180))[0] >> 10
-
-    analog = _nes_skeleton(cfg, dev).expand(B, -1, -1).clone()
     brow0, brows = (yo, desth) if optimized else (0, 259)  # crt_nes.c:174/249
-    analog[:, brow0:brow0 + brows, cfg.cb_beg:cfg.cb_beg + cfg.burst_len] = \
-        _burst_rows(ccburst, cfg, brow0, brows)
-    ccf = ((cfg.blank_level + ccburst * cfg.burst_level) >> 5) << 7
-
-    def to_ire(p, phase):
-        ire = cfg.black_level + black_point + _nes_square_sum4(p, phase)
-        return _wrap_i8(cdiv(ire * white_point, 100) >> 12)  # crt_nes.c:190
-
-    if draw_border:
-        # rows TOP..BOT+2, columns LAV_BEG..HRES, drawn before the picture
-        # overwrites the middle; the first border column is pixel 0xf0
-        nb0, nb1 = cfg.top, cfg.bot + 3
-        tb = torch.arange(H - cfg.lav_beg, dtype=torch.int32, device=dev)
-        phb = _nes_phase(torch.arange(nb0, nb1, dtype=torch.int32,
-                                      device=dev), dco, VP) + 6
-        pb = torch.where(tb == 0, 0xF0,
-                         _b(border_color, B, dev)[:, None, None] & 0x1FF)
-        analog[:, nb0:nb1, cfg.lav_beg:] = to_ire(
-            pb, phb[..., None] + 3 * tb)
-
-    sy = ((torch.arange(desth, device=dev) * h) // desth).clamp(max=h - 1)
-    sx = (torch.arange(destw, device=dev) * w) // destw
-    p = ppu[:, sy][:, :, sx]                              # (B, desth, destw)
-    ph0 = _nes_phase(torch.arange(desth, dtype=torch.int32, device=dev)
-                     + yo, dco, VP)
-    xphase = 3 * (torch.arange(destw, dtype=torch.int32, device=dev) % 4)
-    analog = _store_active(analog, to_ire(p, ph0[..., None] + xphase), xo, yo)
-    return analog, ccf
+    # the skeleton is build_skeleton_nes's: sync from SYNC_BEG to BW_BEG, to
+    # PPUpx2pos(327) on lines 259-261; the border's rows run TOP..BOT+2
+    # from LAV_BEG
+    return nes.nes_square(
+        torch.empty_like(analog), ppu, nes.square_table(dev),
+        _b(dot_crawl_offset, B, dev), _b(black_point, B, dev),
+        _b(white_point, B, dev), _b(border_color, B, dev), _b(hue, B, dev),
+        nes.burst_sines(dev), xo=xo, yo=yo, destw=destw, desth=desth,
+        draw_border=draw_border, box=(cfg.top, cfg.bot + 3, cfg.lav_beg),
+        vp=cfg.cc_vper, skeleton=(cfg.sync_beg, cfg.bw_beg, 259,
+                                  327 * H // 341, cfg.sync_level,
+                                  cfg.blank_level),
+        burst_box=(brow0, brows, cfg.cb_beg, cfg.burst_len),
+        cc=cfg.cc_samples, vert_step=cfg.vert_step,
+        burst_level=cfg.burst_level,
+        black_level=cfg.black_level)

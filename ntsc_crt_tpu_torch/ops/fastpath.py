@@ -1,4 +1,5 @@
-"""The demodulator's data movements as plain integer indexing.
+"""The modulator's and demodulator's data movements as plain integer
+indexing.
 
 Counterpart of ``ntsc_crt_tpu/ops/fastpath.py``.  The JAX package replaces
 every gather with one-hot matmuls, mixed-radix masked shifts or int8-limb
@@ -59,3 +60,24 @@ def lerp_resample(vals: torch.Tensor, outw: int, shift: int) -> torch.Tensor:
     b = vals[..., (s + 1).clamp(max=av_len - 1)]
     return (((a * torch.as_tensor(L, device=dev)) >> shift)
             + ((b * torch.as_tensor(R, device=dev)) >> shift))
+
+
+def store_active(analog: torch.Tensor, ire: torch.Tensor, xo: int,
+                 yo: int) -> torch.Tensor:
+    """Write the active block at (yo, xo) with the reference's FLAT indexing
+    (crt_ntsc.c:322: analog[(x+xo) + (y+yo)*HRES]): a row whose xo + destw
+    exceeds HRES spills into the start of the next row; writes past the
+    final row (UB in the reference) are clipped.  Writes `analog` in place
+    and returns it."""
+    B, desth, destw = ire.shape
+    V, H = analog.shape[1], analog.shape[2]
+    spill = xo + destw - H
+    rows = min(desth, V - yo)
+    if spill <= 0:
+        analog[:, yo:yo + rows, xo:xo + destw] = ire[:, :rows]
+        return analog
+    main_w = destw - spill
+    analog[:, yo:yo + rows, xo:] = ire[:, :rows, :main_w]
+    rows2 = min(desth, V - yo - 1)
+    analog[:, yo + 1:yo + 1 + rows2, :spill] = ire[:, :rows2, main_w:]
+    return analog

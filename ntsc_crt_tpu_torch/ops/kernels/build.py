@@ -41,6 +41,7 @@ _SIGNATURES = {
     "ntsc_vhs_region_b_entries": "pp" + "i" * 3 + "p",
     "ntsc_inject_noise": "p" * 7 + "i" * 6 + "p",
     "ntsc_vhs_noise_bc": "p" * 9 + "i" * 5 + "p",
+    "ntsc_nes_square": "p" * 10 + "i" * 28 + "p",
     "ntsc_iir_lowpass_rows": "ppp" + "ii" + "p",
     "ntsc_eq_threeband_rows": "p" * 7 + "ii" + "p",
     "ntsc_scanconv_rows": "p" * 5 + "iii" + "p",

@@ -115,7 +115,8 @@ KERNEL_FUNCS = (("encode_rows_kernel", "encode_rows"),
                 ("vhs_region_b_kernel", "vhs_region_b_entries"),
                 ("inject_noise_kernel", "inject_noise"),
                 ("vhs_noise_bc_kernel", "vhs_noise_bc"),
-                ("place_rows_kernel", "place_rows_uniform"))
+                ("place_rows_kernel", "place_rows_uniform"),
+                ("nes_square_kernel", "nes_square"))
 
 
 def kernel_of(event: str):

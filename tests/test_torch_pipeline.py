@@ -192,8 +192,8 @@ def test_port_imports_no_jax():
     `ntsc_crt_tpu.*`) is loaded by importing the port."""
     code = ("import sys, ntsc_crt_tpu_torch; "
             "from ntsc_crt_tpu_torch.utils import convert; "
-            "from ntsc_crt_tpu_torch.ops.kernels import ccf, place, vhs, "
-            "probe, rowfilters, scanconv; "
+            "from ntsc_crt_tpu_torch.ops.kernels import ccf, nes, noise, "
+            "place, vhs, probe, rowfilters, scanconv; "
             "from ntsc_crt_tpu_torch import cli; "
             "from ntsc_crt_tpu_torch.apps import live, term_live, x11_live; "
             "from ntsc_crt_tpu_torch.models import video; "
