@@ -20,8 +20,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    inputs the paths hand it at batch 1 and 64 (640x480 output): K1
    encode_rows, K2 decode_rows (3-band), K3 hsync_chase, K4 ccf_ema, K6
    place_rows_uniform and K11 inject_noise from an NTSC step; K2 in conv
-   mode from an NTSC eq_mode="conv7" step; K2 in bloom mode and
-   bloom_line_width from an NTSC do_bloom step; K4 ccf_ema, K5
+   mode from an NTSC eq_mode="conv7" step; K2 in bloom mode,
+   bloom_line_width and K6 in bloom mode from an NTSC do_bloom step; K4
+   ccf_ema, K5
    vhs_region_b_entries, K11 over region A and K12 vhs_noise_bc from an
    NTSCVHS step; K1 with a carrier table a row, K2 on 5-sample chroma at
    1920-sample lines, K3 and K4 (VP 5) from a PV1K step; K1 and K4 (VP 3)
@@ -32,7 +33,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    inputs' Y/I/Q rows, K9 on K8's output, and the unfused chain against K2;
    K3 and K4 also at batch 512 on NTSC's and PV1K's inputs, K5 and K12 on
    NTSCVHS's, K13 on NES's, K11 on every main path's, bloom_line_width (its
-   line sums included) on the bloom path's, K7 on NTSC's and PV1K's rows
+   line sums included) and K6's bloom mode on the bloom path's, K7 on
+   NTSC's and PV1K's rows
    and K8 on NTSC's; K10's three patterns at the TPU probe's size.  Exact
    equality;
    each side's time from CUDA events (the kernel's also with its calls
@@ -57,8 +59,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    parities, at the int32 seeds and knobs, noise 1 << 24 included; K13 at
    PPU sizes 256x240, 1x1 and 255x239, every 9-bit pixel, a picture
    spilling past HRES or clipped at the field's end, the border at 0x1FF,
-   a field off the 4-byte grid, negative dot-crawl offsets and the black
-   and white points where the int32 sums and the int8 store wrap).  Then
+   a field off the 4- and 16-byte grids, B 17 (the slots' fields start at
+   every even residue of the 16-byte grid), negative dot-crawl offsets
+   and the black and white points where the int32 sums and the int8 store
+   wrap; K6's bloom mode at every ratio, blend, scanline gap and field
+   parity, on 16-byte and byte rows, with lines drawn wholly, not at all,
+   to mid-row and with dx and scan at the int32 edges).  Then
    one NTSC batch-1 step and one video_exact call of 4 frames under
    torch.cuda.set_sync_debug_mode: a
    synchronizing op inside the line scan, or one of the port's inside
@@ -76,7 +82,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    throughput use); NES from 256x240 PPU pixels at both.  The launch counts
    are zeroed just before each path and read just after it: every kernel of
    the path must have launched, and none that the path must not run (K7-K10
-   run on no pipeline path).  Each path's last step must equal the same
+   run on no pipeline path); every path places its rows by K6 (bloom's by
+   its bloom mode): a call of the general row placement (per-row gathers)
+   fails the run.  Each path's last step must equal the same
    step run on the CPU's plain path.  Then, for each path and batch, one
    step timed stage by stage (host clock around synchronized stages) and
    one step under torch.profiler (device launches and busy time, and each
@@ -186,6 +194,10 @@ ORIGIN = {  # kernel -> (CUDA source, the Pallas kernel's pallas_call)
                    "ntsc_crt_tpu/models/modulate.py:818"),
     "place_rows_uniform": ("ntsc_crt_tpu_torch/csrc/place.cu",
                            "ntsc_crt_tpu/ops/pallas/place_rows.py:255"),
+    # no Pallas kernel: the JAX decoder sends bloom's lines (a `valid`
+    # plane) to its general placement, XLA's row gathers
+    "place_rows_uniform_bloom": ("ntsc_crt_tpu_torch/csrc/place.cu",
+                                 "ntsc_crt_tpu/models/demodulate.py:1314"),
     "iir_lowpass_rows": ("ntsc_crt_tpu_torch/csrc/rowfilters.cu",
                          "ntsc_crt_tpu/ops/pallas/filters_pallas.py:173"),
     "eq_threeband_rows": ("ntsc_crt_tpu_torch/csrc/rowfilters.cu",
@@ -337,13 +349,16 @@ def work_line_width(a, k, out):
 
 def work_place(a, k, out):
     """Per 16-byte chunk: the row's source picks and the keep test (about
-    30), the blend 16 over four words.  Bytes: the lines, the field bits,
-    the output, and only the previous rows this data needs — those kept
-    (scanline gaps, the odd field's clips) and, with blend, each group's
-    beg row."""
+    30), the blend 16 over four words, bloom mode's six pixel tests and
+    byte masks about 40.  Bytes: the lines, the field bits, bloom mode's
+    (dx, scan) lines, the output, and only the previous rows this data
+    needs — those kept (scanline gaps, the odd field's clips), with blend
+    each group's beg row, and without it, in bloom mode, the bytes of the
+    beg rows under the pixels their lines do not draw."""
+    from ntsc_crt_tpu_torch.models import demodulate as dem
     rgb, old, field_px = a
     ratio, fp, sl = k["ratio"], k["fp"], k["scanlines"]
-    B, L = rgb.shape[:2]
+    B, L, w = rgb.shape[:3]
     fb = (field_px > 0).cpu()[:, None]                    # (B, 1)
     r = torch.arange(ratio * L)
     kk, j = r // ratio, r % ratio
@@ -351,15 +366,24 @@ def work_place(a, k, out):
     if fp:
         keep |= (j < fp) & (kk == 0) & fb
         keep |= (j > fp) & (j >= ratio - sl) & (kk == L - 1) & fb
+    src = torch.where(fb & (j < fp), (kk - 1).clamp(min=0), kk)
     need = keep.clone()
     if k["blend"]:
-        src = torch.where(fb & (j < fp), (kk - 1).clamp(min=0), kk)
         beg = ratio * src + torch.where(fb, fp, 0)
         need.scatter_(1, torch.where(keep, r, beg), True)
     old_bytes = int(need.sum()) * old[0, 0].numel()
+    bloom = k.get("bloom_dx") is not None
+    if bloom and not k["blend"]:
+        undrawn = (~dem.bloom_drawn(k["bloom_dx"], k["bloom_scan"],
+                                    k["av_len"], w)).sum(-1).cpu()
+        used = torch.zeros((B, L + 1), dtype=torch.bool)
+        used.scatter_(1, torch.where(keep, L, src), True)  # lines read
+        old_bytes += int((undrawn * used[:, :L]).sum()) * 3
     n = out.numel() // 16
-    return (nbytes(rgb, field_px, out) + old_bytes,
-            n * (30 + (16 if k["blend"] else 0)), None)
+    return (nbytes(rgb, field_px, out) + old_bytes
+            + (nbytes(k["bloom_dx"], k["bloom_scan"]) if bloom else 0),
+            n * (30 + (16 if k["blend"] else 0) + (40 if bloom else 0)),
+            None)
 
 
 def work_hsync(a, k, out):
@@ -575,6 +599,10 @@ def kernel_modules():
         "place_rows_uniform": Kernel(place, "place_rows_uniform", "LAUNCHES",
                                      place.place_rows_uniform_plain,
                                      work_place),
+        "place_rows_uniform_bloom": Kernel(place, "place_rows_uniform",
+                                           "BLOOM_LAUNCHES",
+                                           place.place_rows_uniform_plain,
+                                           work_place),
         "iir_lowpass_rows": Kernel(rowfilters, "iir_lowpass_rows",
                                    "IIR_LAUNCHES",
                                    rowfilters.iir_lowpass_rows_plain,
@@ -741,7 +769,8 @@ def phase_kernels(pipeline, systems, dev):
                               "inject_noise"), {}),
               (systems.NTSC, ("decode_rows_conv", "inject_noise"), CONV7),
               (systems.NTSC, ("decode_rows_bloom", "bloom_line_width",
-                              "inject_noise"), BLOOM),
+                              "place_rows_uniform_bloom", "inject_noise"),
+               BLOOM),
               (systems.NTSCVHS, ("ccf_ema", "vhs_region_b_entries",
                                  "inject_noise", "vhs_noise_bc"), VHS_KW),
               (systems.PV1K, ("encode_rows", "decode_rows", "hsync_chase",
@@ -790,7 +819,9 @@ def phase_scan_kernels(pipeline, systems, dev, batches, rows):
               (systems.PV1K, ("hsync_chase", "ccf_ema", "inject_noise"), {}),
               (systems.NTSCVHS, ("vhs_region_b_entries", "inject_noise",
                                  "vhs_noise_bc"), VHS_KW),
-              (systems.NTSC, ("bloom_line_width", "inject_noise"), BLOOM),
+              (systems.NTSC, ("bloom_line_width",
+                              "place_rows_uniform_bloom", "inject_noise"),
+               BLOOM),
               (systems.NTSC, ("inject_noise",), CONV7),
               (systems.NES, ("nes_square", "inject_noise"), {}),
               (systems.NTSC, ("iir_lowpass_rows", "eq_threeband_rows"), {}),
@@ -856,9 +887,12 @@ K12_EDGES = ((1, 910, 910 * 262), (3, 909, 909 * 262), (33, 7, 174),
 # field offset in bytes) of K13 inputs (tests/test_torch_nes.py CASES):
 # PPU sizes 256x240, 1x1 and 255x239, all 512 pixels with the border at
 # 0x1FF, a picture spilling past HRES, one clipped at the field's end, both
-# with the border, a field off the 4-byte grid (the byte path); the knobs
-# dealt over the slots reach negative dot-crawl offsets and the black and
-# white points where the int32 sums and the int8 store wrap
+# with the border, a field off the 4- and 16-byte grids; at B 17 the slots'
+# fields (238,158 bytes, 14 mod 16) start at every even residue mod 16 of
+# the 16-byte grid that K13 stores on (odd ones with the field 3 bytes
+# off), with rows spilling past HRES and the border; the knobs dealt over
+# the slots reach negative dot-crawl offsets and the black and white
+# points where the int32 sums and the int8 store wrap
 NES_EDGES = ((1, (240, 256), False, 0, 0, None, 0),
              (3, (1, 1), False, 0, 0, None, 0),
              (3, (239, 255), False, 0, 0, None, 0),
@@ -866,11 +900,46 @@ NES_EDGES = ((1, (240, 256), False, 0, 0, None, 0),
              (3, (240, 256), False, 100, 0, None, 0),
              (3, (239, 255), False, 0, 20, None, 0),
              (33, (240, 256), False, 33, 7, 0x1FF, 0),
-             (3, (240, 256), True, 0, 20, 0x1FF, 1))
+             (3, (240, 256), True, 0, 20, 0x1FF, 1),
+             (17, (240, 256), False, 0, 0, None, 0),
+             (17, (240, 256), True, 100, 0, 0x1FF, 0),
+             (17, (239, 255), False, 100, 20, 0x1FF, 3))
+# (B, L, w, ratio, blend, scanlines, parity of slot 0) of K6 bloom-mode
+# inputs: 16-byte rows (w * 3 % 16 == 0) and byte rows, every ratio, blend
+# and scanline gap, both field parities; the lines drawn wholly, not at
+# all, to mid-row, and with dx and scan near the int32 edge (bloom_lines;
+# tests/test_torch_bloom_place.py KINDS)
+K6_BLOOM_EDGES = ((1, 7, 640, 2, 1, 1, 1), (3, 9, 37, 3, 0, 2, 0),
+                  (3, 8, 21, 2, 0, 0, 1), (5, 6, 16, 1, 1, 0, 0),
+                  (2, 240, 640, 2, 0, 1, 0), (33, 11, 48, 3, 1, 1, 1))
 DCO_EDGES = (0, -1, -5, -2**31, 2**31 - 1, 4)
 BLACK_EDGES = (0, -40000, 2**31 - 1, -2**31, 123)
 WHITE_EDGES = (100, 2**31 - 1, -9000, 12345)
 HUE_EDGES = (0, 45, -300, 2**31 - 1)
+
+
+def bloom_lines(rng, B, L, w, av):
+    """(dx, scan) int32 (B, L) of bloom lines: each slot's first six lines
+    drawn wholly, not at all, to mid-row, past the int32 top of scan (drawn
+    again where the sum wraps), at dx's int32 edges and backwards from past
+    the end; the rest dealt from these kinds."""
+    lim = (av - 1) << 12
+    kind = np.where(np.arange(L) < 6, np.resize(np.arange(6), (B, L)),
+                    rng.integers(0, 6, (B, L)))
+    step = lim // w
+    dx = np.choose(kind, [
+        rng.integers(0, step, (B, L)), rng.integers(1, 3 * step, (B, L)),
+        rng.integers(2 * step, 4 * step, (B, L)),
+        rng.integers(1 << 20, 1 << 24, (B, L)),
+        rng.choice([2**31 - 1, -2**31, 2**30 + 7, -2**30 - 3], (B, L)),
+        -rng.integers(step // 2 + 1, 2 * step, (B, L))])
+    scan = np.choose(kind, [
+        np.zeros((B, L), np.int64), rng.integers(lim, 2**31, (B, L)),
+        rng.integers(-4096, 4096, (B, L)),
+        rng.integers(2**31 - (1 << 22), 2**31, (B, L)),
+        rng.integers(-2**31, 2**31, (B, L)),
+        rng.integers(lim, lim + 8 * step, (B, L))])
+    return dx.astype(np.int32), scan.astype(np.int32)
 
 
 def ragged_cases(dev):
@@ -888,7 +957,8 @@ def ragged_cases(dev):
     (ROW_OFF_GRID), on full-range int32 samples, whose sums wrap; K11 and
     K12 at odd batches, NES's rows, short rows and unaligned input
     (K11_EDGES, K12_EDGES) at the seed and knob edges; K13 at the PPU sizes,
-    pixels, offsets and knobs of NES_EDGES.  Yields (kernel, label, args,
+    pixels, offsets and knobs of NES_EDGES; K6's bloom mode at the shapes,
+    knobs and lines of K6_BLOOM_EDGES.  Yields (kernel, label, args,
     kwargs)."""
     from ntsc_crt_tpu_torch.models import demodulate as dem
     from ntsc_crt_tpu_torch.models import systems
@@ -1007,6 +1077,17 @@ def ragged_cases(dev):
                 t(a3.view(np.int32)), t(c3.view(np.int32)),
                 t(rng.integers(-64, 65, (8, nB + nC)).astype(np.int32)),
                 deal(range(10, 18), B), deal(NOISE_EDGES, B)), dict(H=H))
+    for B, L, w, ratio, blend, sl, parity in K6_BLOOM_EDGES:
+        fp, av = ratio // 2, ntsc.av_len
+        dx, scan = bloom_lines(rng, B, L, w, av)
+        yield ("place_rows_uniform_bloom", f"B {B}, L {L}, w {w}, ratio "
+               f"{ratio}, blend {blend}, scanlines {sl}, slot 0 "
+               + ("odd" if parity else "even"),
+               (t(rng.integers(0, 256, (B, L, w, 3), dtype=np.uint8)),
+                t(rng.integers(0, 256, (B, ratio * L, w, 3), dtype=np.uint8)),
+                t(((np.arange(B) + parity) % 2 * fp).astype(np.int32))),
+               dict(blend=bool(blend), scanlines=sl, ratio=ratio, fp=fp,
+                    bloom_dx=t(dx), bloom_scan=t(scan), av_len=av))
     nes_cfg = systems.NES
     V, H = nes_cfg.vres, nes_cfg.hres
     for B, (h, w), every, xoff, yoff, border, off in NES_EDGES:
@@ -1016,7 +1097,7 @@ def ragged_cases(dev):
         yo = nes_cfg.top + yoff     # the unoptimized build's burst past 240
         yield ("nes_square", f"B {B}, PPU {w}x{h}, xoffset {xoff}, yoffset "
                f"{yoff}, border {border}" + (", every pixel" if every else "")
-               + (f", field {off} bytes past 4" if off else ""),
+               + (f", field {off} bytes off the grid" if off else ""),
                (field[off:].view(B, V, H), t(ppu),
                 nes.square_table(torch.device(dev)), deal(DCO_EDGES, B),
                 deal(BLACK_EDGES, B), deal(WHITE_EDGES, B),
@@ -1038,8 +1119,8 @@ def ragged_cases(dev):
 
 
 def phase_ragged(dev):
-    """K1-K5, bloom_line_width, K7, K8, K11, K12 and K13 against their plain
-    versions on the ragged_cases inputs, at 0 LSB (K2's through
+    """K1-K5, bloom_line_width, K7, K8, K11, K12, K13 and K6's bloom mode
+    against their plain versions on the ragged_cases inputs, at 0 LSB (K2's through
     decode_rows_plain_any_shift: the shifts go below 0)."""
     from ntsc_crt_tpu_torch.ops.kernels import decode
     mods = kernel_modules()
@@ -1771,8 +1852,23 @@ def phase_path(pipeline, cfg, kw, needed, card, dev, steps1=20, stepsB=5):
         mem.append(torch.cuda.max_memory_allocated(dev))
         return r1, rB
 
-    launches, (r1, rB) = counted(
-        f"{label} main path, {steps1 + stepsB + 4} steps", needed, both)
+    from ntsc_crt_tpu_torch.models import demodulate as dem
+    general = []
+
+    def note(name, fn):
+        def run(*a, **k):
+            general.append(name)
+            return fn(*a, **k)
+        return run
+
+    with patched([(dem, "_place_rows_general")], note):
+        launches, (r1, rB) = counted(
+            f"{label} main path, {steps1 + stepsB + 4} steps", needed, both)
+    if general:
+        raise SystemExit(f"{label}: the general row placement (per-row "
+                         f"gathers) ran {len(general)} times on a main path")
+    print(f"{label} main path: every step's rows placed by K6, none by the "
+          "general gathers", flush=True)
     (ms1, prev1, args1, st1, _), (msB, prevB, argsB, stB, _) = r1, rB
     for k, st in (("batch 1", st1), (f"batch {B}", stB)):
         if tuple(st.out.shape[1:]) != (OUTH, OUTW, 3) or \
@@ -1805,6 +1901,25 @@ def phase_path(pipeline, cfg, kw, needed, card, dev, steps1=20, stepsB=5):
                   or "none in the trace"), flush=True)
     profile_line_scan(pipeline, cfg, stB, imgsB, B, kw, card)
     return launches
+
+
+def time_paths(labels=("NTSC do_bloom=True", "NES")) -> None:
+    """The main paths named by `labels` (path_label) alone, on the card:
+    each one's phase_path (counted, held to the CPU, stage times, a
+    profiled step, peak memory), to set two trees side by side in one
+    call:
+
+        python3 -c "import chip_smoke as c; c.time_paths()"
+    """
+    from ntsc_crt_tpu_torch.models import pipeline, systems
+    from ntsc_crt_tpu_torch.ops.kernels import build
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(card, flush=True)
+    build.library()
+    for cfg, kw, needed in main_paths(systems):
+        if path_label(cfg, kw) in labels:
+            phase_path(pipeline, cfg, kw, needed, card, dev)
 
 
 def phase_variant(pipeline, cfg, kw, needed, dev):
@@ -2121,7 +2236,8 @@ def main_paths(systems):
                     "vhs_noise_bc")),
             (systems.NTSC, BLOOM,
              ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows_bloom",
-              "bloom_line_width", "inject_noise")),
+              "bloom_line_width", "place_rows_uniform_bloom",
+              "inject_noise")),
             (systems.NTSC, CONV7,
              ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows_conv",
               "place_rows_uniform", "inject_noise")),

@@ -9,7 +9,9 @@ package's integer results bit for bit; the JAX package stays the reference.
                 gathers
   ops/kernels/  K1 encode_rows, K2 decode_rows (3-band, convolution-EQ and
                 bloom modes) with bloom_line_width, K3 hsync_chase, K4
-                ccf_ema, K5 vhs_region_b_entries, K6 place_rows_uniform, K7
+                ccf_ema, K5 vhs_region_b_entries, K6 place_rows_uniform
+                (with a bloom mode), K11 inject_noise, K12 vhs_noise_bc,
+                K13 nes_square, K7
                 iir_lowpass_rows and K8 eq_threeband_rows (rowfilters), K9
                 scanconv_rows with the unfused decode chain, K10 the int32
                 issue-rate probe (``python -m

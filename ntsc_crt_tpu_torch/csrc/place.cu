@@ -17,9 +17,19 @@
 // bottom clips.  Every decision is per row, so a thread only picks its two
 // source rows and moves 16 bytes.
 //
+// Bloom mode (BLOOM, crt_core.c:512-555): pixel p of the source line is
+// drawn iff scan + p * dx < (av_len - 1) << 12 in wrapping int32, from the
+// line's (dx, scan); a byte of a pixel not drawn takes the beg row's
+// previous contents (the row the blend reads), as the general placement
+// does with its `valid` plane (ntsc_crt_tpu/models/demodulate.py:1314).
+// A thread tests the six pixels its 16 bytes touch, spreads the result to
+// a byte mask and selects with it; it reads the beg row only where a byte
+// needs it.
+//
 // What bounds it on the H100: bytes.  It reads each needed line and old
 // row and writes the output once; the ratio slots of a group re-read the
-// same line, which the L2 serves.
+// same line, which the L2 serves.  Bloom mode adds about 40 integer ops a
+// chunk.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -31,13 +41,25 @@ __device__ __forceinline__ unsigned half_sum(unsigned a, unsigned b) {
     return ((a >> 1) & 0x7F7F7F7Fu) + ((b >> 1) & 0x7F7F7F7Fu);
 }
 
-template <int VEC>
+// pixel p is drawn: scan + p * dx < lim, wrapping
+__device__ __forceinline__ bool drawn(int scan, int dx, int p, int lim) {
+    return (int)((unsigned)scan + (unsigned)p * (unsigned)dx) < lim;
+}
+
+// 0xFF in byte k of the word for each set bit k of a 4-bit mask
+__device__ __forceinline__ unsigned byte_mask(unsigned nib) {
+    return ((nib * 0x00204081u) & 0x01010101u) * 0xFFu;
+}
+
+template <int VEC, bool BLOOM>
 __global__ void place_rows_kernel(const uint8_t* __restrict__ rgb,  // (B, L, w3)
                                   const uint8_t* __restrict__ old,  // (B, ratio*L, w3)
                                   const int* __restrict__ field_px,  // (B,)
+                                  const int* __restrict__ bloom_dx,    // (B, L)
+                                  const int* __restrict__ bloom_scan,  // (B, L)
                                   uint8_t* __restrict__ out,  // (B, ratio*L, w3)
                                   int B, int L, int ratio, int w3, int fp,
-                                  int blend, int scanlines) {
+                                  int blend, int scanlines, int av_len) {
     const long long nc = w3 / VEC;
     const long long outh = (long long)ratio * L;
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -63,46 +85,93 @@ __global__ void place_rows_kernel(const uint8_t* __restrict__ rgb,  // (B, L, w3
     const uint8_t* ob =
         old + (b * outh + (long long)ratio * src + (fp > 0 && fb ? fp : 0)) * w3 + c;
     const bool mix = blend && !keep;
+    // bit i: byte c + i is drawn (all of them outside bloom mode)
+    unsigned dm = VEC == 16 ? 0xFFFFu : 1u;
+    if (BLOOM && !keep) {
+        const int dx = bloom_dx[b * L + src], sc = bloom_scan[b * L + src];
+        const int lim = (av_len - 1) << 12;
+        if constexpr (VEC == 16) {
+            // bit 3q + t of rep: pixel p0 + q drawn, for its bytes t < 3
+            const int p0 = (int)(c / 3), r0 = (int)(c - 3LL * p0);
+            unsigned rep = 0;
+#pragma unroll
+            for (int q = 0; q < 6; ++q)
+                rep |= drawn(sc, dx, p0 + q, lim) ? 7u << (3 * q) : 0u;
+            dm = (rep >> r0) & 0xFFFFu;
+        } else {
+            dm = drawn(sc, dx, (int)(c / 3), lim);
+        }
+    }
+    const bool need_ob = mix || dm != (VEC == 16 ? 0xFFFFu : 1u);
     if constexpr (VEC == 16) {
         uint4 v = *reinterpret_cast<const uint4*>(s);
-        if (mix) {
+        if (need_ob) {
             const uint4 w = *reinterpret_cast<const uint4*>(ob);
-            v.x = half_sum(v.x, w.x);
-            v.y = half_sum(v.y, w.y);
-            v.z = half_sum(v.z, w.z);
-            v.w = half_sum(v.w, w.w);
+            if (mix) {
+                v.x = half_sum(v.x, w.x);
+                v.y = half_sum(v.y, w.y);
+                v.z = half_sum(v.z, w.z);
+                v.w = half_sum(v.w, w.w);
+            }
+            if (BLOOM) {   // bytes not drawn keep the beg row's contents
+                unsigned m = byte_mask(dm & 15u);
+                v.x = (v.x & m) | (w.x & ~m);
+                m = byte_mask((dm >> 4) & 15u);
+                v.y = (v.y & m) | (w.y & ~m);
+                m = byte_mask((dm >> 8) & 15u);
+                v.z = (v.z & m) | (w.z & ~m);
+                m = byte_mask(dm >> 12);
+                v.w = (v.w & m) | (w.w & ~m);
+            }
         }
         *reinterpret_cast<uint4*>(d) = v;
     } else {
         unsigned v = *s;
-        if (mix) v = (v >> 1) + (*ob >> 1);
+        if (need_ob) {
+            const unsigned w = *ob;
+            if (mix) v = (v >> 1) + (w >> 1);
+            if (BLOOM && !dm) v = w;
+        }
         *d = (uint8_t)v;
     }
+}
+
+template <int VEC, bool BLOOM>
+void launch(unsigned blocks, int threads, cudaStream_t s, const void* rgb,
+            const void* old, const void* field_px, const void* bloom_dx,
+            const void* bloom_scan, void* out, int B, int L, int ratio,
+            int w3, int fp, int blend, int scanlines, int av_len) {
+    place_rows_kernel<VEC, BLOOM><<<blocks, threads, 0, s>>>(
+        (const uint8_t*)rgb, (const uint8_t*)old, (const int*)field_px,
+        (const int*)bloom_dx, (const int*)bloom_scan, (uint8_t*)out, B, L,
+        ratio, w3, fp, blend, scanlines, av_len);
 }
 
 }  // namespace
 
 // rgb uint8 (B, L, w3); old, out uint8 (B, ratio*L, w3); field_px int32
-// (B,); blend 0/1; 0 <= scanlines < ratio; 0 <= fp < ratio
+// (B,); bloom_dx, bloom_scan int32 (B, L), both null outside bloom mode;
+// blend 0/1; 0 <= scanlines < ratio; 0 <= fp < ratio; av_len (bloom)
 extern "C" int ntsc_place_rows_uniform(const void* rgb, const void* old,
-                                       const void* field_px, void* out, int B,
-                                       int L, int ratio, int w3, int fp,
-                                       int blend, int scanlines,
-                                       void* stream) {
+                                       const void* field_px,
+                                       const void* bloom_dx,
+                                       const void* bloom_scan, void* out,
+                                       int B, int L, int ratio, int w3,
+                                       int fp, int blend, int scanlines,
+                                       int av_len, void* stream) {
     const bool vec = w3 % 16 == 0 && (uintptr_t)rgb % 16 == 0 &&
                      (uintptr_t)old % 16 == 0 && (uintptr_t)out % 16 == 0;
+    const bool bloom = bloom_dx != nullptr;
+    if (bloom != (bloom_scan != nullptr) ||
+        (bloom && (av_len < 1 || av_len > (1 << 19))))
+        return (int)cudaErrorInvalidValue;
     const long long n = (long long)B * ratio * L * (vec ? w3 / 16 : w3);
     const int threads = 256;
     const unsigned blocks = (unsigned)((n + threads - 1) / threads);
     auto s = static_cast<cudaStream_t>(stream);
-    if (vec) {
-        place_rows_kernel<16><<<blocks, threads, 0, s>>>(
-            (const uint8_t*)rgb, (const uint8_t*)old, (const int*)field_px,
-            (uint8_t*)out, B, L, ratio, w3, fp, blend, scanlines);
-    } else {
-        place_rows_kernel<1><<<blocks, threads, 0, s>>>(
-            (const uint8_t*)rgb, (const uint8_t*)old, (const int*)field_px,
-            (uint8_t*)out, B, L, ratio, w3, fp, blend, scanlines);
-    }
+    auto go = vec ? (bloom ? launch<16, true> : launch<16, false>)
+                  : (bloom ? launch<1, true> : launch<1, false>);
+    go(blocks, threads, s, rgb, old, field_px, bloom_dx, bloom_scan, out, B,
+       L, ratio, w3, fp, blend, scanlines, av_len);
     return (int)cudaGetLastError();
 }

@@ -366,9 +366,10 @@ def demodulate_core(
     xpos_l, beg_l, end_l, active_l, wvI_l, wvQ_l = outs
 
     # line l reads field rows l+3 and l+4 (ynudge=+3), i.e. rolled4 from row 3
-    shifts, valid, bloom = xpos_l, None, {}
+    shifts, bloom, drawn = xpos_l, {}, None
     if do_bloom:
-        dx_l, lidx_l, valid = _bloom_lines(cfg, rolled4, xpos_l, noise, outw)
+        dx_l, scan_l = _bloom_lines(cfg, rolled4, xpos_l, noise, outw)
+        lidx_l = scan_l >> 12
         shifts = xpos_l + lidx_l          # the EQ starts at scanL >> 12
         # the carrier phase at that start: tables rotated by lidx mod CC
         rot = (torch.arange(CC, device=dev) + (lidx_l % CC)[..., None]) % CC
@@ -376,6 +377,8 @@ def demodulate_core(
         wvQ_l = torch.gather(wvQ_l, 2, rot)
         bloom = dict(bloom_dx=dx_l.contiguous(),
                      bloom_lidx=lidx_l.contiguous())
+        drawn = dict(bloom_dx=bloom["bloom_dx"],
+                     bloom_scan=scan_l.contiguous(), av_len=AV)
     # K2, split by line over the active spatial group: line l reads rolled4
     # rows l + 3 and l + 4, so a block of lines [lo, hi) takes [lo, hi + 4)
     rgb = spatial.shard_lines_call(
@@ -384,7 +387,7 @@ def demodulate_core(
         _b(mon.contrast, B, dev)[:, None].expand(B, L).contiguous(),
         halo={0: 4}, row0=3, coefs=coefs, av_len=AV, outw=outw, **bloom)
     out_new = _place_rows(rgb, out_prev, beg_l, end_l, active_l, mon.blend,
-                          mon.scanlines, outh, valid=valid,
+                          mon.scanlines, outh, bloom=drawn,
                           field_px=field_px, v_fac=v_fac)
     return out_new, dict(hsync=hsync_new, vsync=vsync_new, ccf=ccf_new,
                          rn=rn_new, randstate=randstate)
@@ -395,48 +398,66 @@ def _bloom_lines(cfg: SystemConfig, rolled4, xpos_l, noise, outw: int):
     an energy EMA that sets the drawn line's width; kernel
     bloom_line_width forms both.  rolled4 int8 (B, L+4, H): line l reads
     field row 3 + l and, where the [xpos, xpos + AV) window spills, the
-    next.  Returns (dx, lidx) int32 (B, L) — each line's pixel step and EQ
-    start scanL >> 12 — and valid bool (B, L, outw): the pixels inside the
-    drawn line (crt_core.c:555 loop bound)."""
+    next.  Returns (dx, scan_l) int32 (B, L): each line's pixel step and
+    its first sample in 1/4096 (the EQ starts at scan_l >> 12; pixel p is
+    drawn iff scan_l + p * dx < (AV - 1) << 12, bloom_drawn)."""
     AV = cfg.av_len
-    dev = rolled4.device
     max_e = (128 + cdiv(noise, 2)) * AV                   # (B,)
     prev_e = decode.bloom_line_width(rolled4, xpos_l.contiguous(),
                                      max_e.contiguous(), row0=3, av_len=AV)
     line_w = (AV * 112 // 128) + (prev_e >> 9)
     dx = (line_w << 12) // outw
     scan_l = ((AV // 2) - (line_w >> 1) + 8) << 12
-    p = torch.arange(outw, dtype=torch.int32, device=dev)
-    valid = scan_l[..., None] + p * dx[..., None] < ((AV - 1) << 12)
-    return dx, scan_l >> 12, valid
+    return dx, scan_l
+
+
+def bloom_drawn(bloom_dx, bloom_scan, av_len: int, outw: int):
+    """bool (B, L, outw): the pixels inside each bloom line's drawn width
+    (crt_core.c:555 loop bound), in wrapping int32."""
+    p = torch.arange(outw, dtype=torch.int32, device=bloom_dx.device)
+    return bloom_scan[..., None] + p * bloom_dx[..., None] < ((av_len - 1)
+                                                              << 12)
 
 
 def _place_rows(rgb, out_prev, beg_l, end_l, active_l, blend, scanlines,
-                outh: int, *, valid=None, field_px=None,
+                outh: int, *, bloom=None, field_px=None,
                 v_fac: int = 0) -> torch.Tensor:
     """The reference's sequential row writes (store at `beg`, duplicate up to
     `end - scanlines`, 50/50 blend against the previous contents;
     crt_core.c:552-664).
 
     Kernel K6 takes the uniform case — JAX's gate (demodulate.py:1275-1279):
-    no `valid` plane, blend and scanlines host ints, (outh + v_fac) % L == 0
-    and 0 <= scanlines < ratio = (outh + v_fac) // L — when also outh ==
-    ratio * L.  Otherwise one per-output-row gather: each row takes the last
-    line that covers it.  "Last line wins" equals the C semantics whenever
-    line begs strictly increase — true iff outh + v_fac >= CRT_LINES (e.g.
-    480 >= 240).  valid (bool (B, L, outw), bloom): a pixel outside its
-    line's drawn width keeps the previous contents of the line's beg row."""
-    B, L = rgb.shape[0], rgb.shape[1]
-    dev = rgb.device
+    blend and scanlines host ints, (outh + v_fac) % L == 0 and 0 <=
+    scanlines < ratio = (outh + v_fac) // L — when also outh == ratio * L;
+    bloom's lines (`bloom`: K6's bloom_dx, bloom_scan and av_len) in its
+    bloom mode, where JAX's gate sends them to the general path.
+    Otherwise _place_rows_general, with bloom's `valid` plane."""
+    L = rgb.shape[1]
     host = (int, np.integer)
-    if (valid is None and field_px is not None and isinstance(blend, host)
+    if (field_px is not None and isinstance(blend, host)
             and isinstance(scanlines, host) and (outh + v_fac) % L == 0):
         ratio = (outh + v_fac) // L
         if 0 <= scanlines < ratio and outh == ratio * L:
             fp = ((((outh << 16) // L) + 32768) >> 16) // 2
             return place.place_rows_uniform(
                 rgb, out_prev, field_px.contiguous(), blend=bool(blend),
-                scanlines=int(scanlines), ratio=ratio, fp=fp)
+                scanlines=int(scanlines), ratio=ratio, fp=fp,
+                **(bloom or {}))
+    valid = None if bloom is None else bloom_drawn(**bloom,
+                                                   outw=rgb.shape[2])
+    return _place_rows_general(rgb, out_prev, beg_l, end_l, active_l, blend,
+                               scanlines, outh, valid=valid)
+
+
+def _place_rows_general(rgb, out_prev, beg_l, end_l, active_l, blend,
+                        scanlines, outh: int, *, valid=None) -> torch.Tensor:
+    """One per-output-row gather: each row takes the last line that covers
+    it.  "Last line wins" equals the C semantics whenever line begs strictly
+    increase — true iff outh + v_fac >= CRT_LINES (e.g. 480 >= 240).  valid
+    (bool (B, L, outw), bloom): a pixel outside its line's drawn width keeps
+    the previous contents of the line's beg row."""
+    B, L = rgb.shape[0], rgb.shape[1]
+    dev = rgb.device
     scanlines = _b(scanlines, B, dev)
     end_c = torch.clamp(end_l, max=outh)
     cov_end = torch.maximum(beg_l + 1, end_c - scanlines[:, None])

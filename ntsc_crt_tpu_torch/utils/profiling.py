@@ -106,7 +106,8 @@ def profile_stages(system: str = "NTSC", batch: int = 64, outw: int = 640,
 
 
 # the port's CUDA functions on the pipeline paths, as the profiler names
-# them, and their kernels (K2's mode from its template arguments)
+# them, and their kernels (K2's and K6's mode from their template
+# arguments)
 KERNEL_FUNCS = (("encode_rows_kernel", "encode_rows"),
                 ("decode_rows_kernel", "decode_rows"),
                 ("bloom_line_width_kernel", "bloom_line_width"),
@@ -125,8 +126,9 @@ def kernel_of(event: str):
         if fn in event:
             if name == "decode_rows" and "Fir" in event:
                 return "decode_rows_conv"
-            if name == "decode_rows" and ("true" in event or "Lb1E" in event):
-                return "decode_rows_bloom"
+            bloom = "true" in event or "Lb1E" in event
+            if name in ("decode_rows", "place_rows_uniform") and bloom:
+                return f"{name}_bloom"
             return name
     return None
 

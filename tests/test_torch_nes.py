@@ -8,8 +8,10 @@ takes) against the JAX package's `modulate_nes` on every leaf: PPU sizes
 black and white points where the int32 arithmetic and the int8 store wrap,
 a picture that spills past HRES or is clipped at the field's end, the
 border, the unoptimized build, batch 1 and 3.  The tests marked `gpu` hold
-the kernel against its plain version on the card at B 1, 3 and 33 and skip
-without one.  Every value is an integer: every comparison is exact (0 LSB).
+the kernel against its plain version on the card at B 1, 3, 17 and 33 (at
+B 17 the slots' fields, 238,158 bytes apart, start at every even residue
+of the 16-byte grid the kernel stores on) and on a field off that grid,
+and skip without one.  Every value is an integer: every comparison is exact (0 LSB).
 
 JAX is imported inside the tests that use it, so the `gpu` tests also run
 on a machine without JAX:
@@ -192,11 +194,14 @@ def test_wrapper_refuses_geometry_it_cannot_store():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [1, 3, 33])
+@pytest.mark.parametrize("B", [1, 3, 17, 33])
 @pytest.mark.parametrize("name", list(CASES))
 def test_nes_square_kernel_matches_plain(cuda, name, B):
     """modulate_nes on the card (K13) against the same call on the CPU
-    (nes_square_plain), one launch a call."""
+    (nes_square_plain), one launch a call.  At B 17 slot b's field starts
+    14 * b mod 16 bytes past the 16-byte grid: every even residue, so a
+    chunk the kernel stores whole straddles rows and slots at every
+    offset."""
     analog, ppu, kw = case_inputs(name, B, seed=B + 100)
     want = port_modulate(analog, ppu, kw, "cpu")
     launches = nes.LAUNCHES
@@ -208,7 +213,8 @@ def test_nes_square_kernel_matches_plain(cuda, name, B):
 
 @pytest.mark.gpu
 def test_nes_square_kernel_on_an_unaligned_field(cuda):
-    """A field that starts off a 4-byte boundary takes the byte path."""
+    """A field that starts off the 4- and 16-byte grids: the kernel's
+    16-byte chunks straddle every row and the slots at odd offsets."""
     analog, ppu, kw = case_inputs("border_1ff_unoptimized", 3, seed=7)
     buf = torch.zeros(analog.size + 1, dtype=torch.int8, device=cuda)
     field = buf[1:].view(analog.shape)

@@ -378,39 +378,52 @@ def test_k6_plain_matches_jax(ratio, blend):
 
 
 def test_place_rows_takes_k6_under_the_uniform_gate(monkeypatch):
-    """_place_rows hands the uniform case to K6 and every other case to the
-    general gather — valid given, a tensor knob, v_fac making outh + v_fac
-    a multiple of the lines without outh == ratio * L — and both agree."""
+    """_place_rows hands the uniform case to K6 — bloom lines too, in K6's
+    bloom mode — and every other case to the general gather — a tensor
+    knob, v_fac making outh + v_fac a multiple of the lines without outh ==
+    ratio * L, bloom outside the gate (with its `valid` plane) — and both
+    agree."""
     L, w = NTSC.lines, 8
     calls = []
     real = place.place_rows_uniform
     monkeypatch.setattr(place, "place_rows_uniform",
                         lambda *a, **k: calls.append(k) or real(*a, **k))
     rgb, old, field_px = k6_inputs(1, 2, L, w, 2)
+    rng = np.random.default_rng(2)
+    drawn = dict(bloom_dx=torch.as_tensor(rng.integers(
+                     0, 40000, (2, L)).astype(np.int32)),
+                 bloom_scan=torch.as_tensor(rng.integers(
+                     -50000, 50000, (2, L)).astype(np.int32)), av_len=60)
     lrel = np.arange(L, dtype=np.int32)[None]
-    cases = [  # (outh, v_fac, blend, scanlines, valid?, K6?)
+    cases = [  # (outh, v_fac, blend, scanlines, bloom?, K6?)
         (480, 0, 1, 1, False, True), (480, 0, 0, 0, False, True),
         (480, 0, torch.tensor(1), 1, False, False),
         (480, 0, 1, torch.tensor(1), False, False),
-        (480, 0, 1, 1, True, False), (470, 10, 1, 1, False, False)]
-    for outh, v_fac, blend, scanlines, with_valid, k6 in cases:
+        (470, 10, 1, 1, False, False),
+        (480, 0, 1, 1, True, True), (480, 0, 0, 0, True, True),
+        (480, 0, torch.tensor(1), 1, True, False),
+        (480, 0, 1, torch.tensor(1), True, False),
+        (470, 10, 1, 1, True, False)]
+    for outh, v_fac, blend, scanlines, bloom, k6 in cases:
         o = torch.as_tensor(old[:, :outh])
         beg = lrel * (outh + v_fac) // L + field_px[:, None]
         end = (lrel + 1) * (outh + v_fac) // L + field_px[:, None]
-        valid = torch.ones((2, L, w), dtype=torch.bool) if with_valid else None
         n = len(calls)
         got = dem._place_rows(torch.as_tensor(rgb), o, torch.as_tensor(beg),
                               torch.as_tensor(end),
                               torch.as_tensor(beg < outh), blend, scanlines,
-                              outh, valid=valid,
+                              outh, bloom=drawn if bloom else None,
                               field_px=torch.as_tensor(field_px), v_fac=v_fac)
-        assert len(calls) == n + k6, (outh, v_fac, blend, scanlines)
+        assert len(calls) == n + k6, (outh, v_fac, blend, scanlines, bloom)
+        if k6:
+            assert (calls[-1].get("bloom_dx") is not None) == bloom
         want = dem._place_rows(torch.as_tensor(rgb), o, torch.as_tensor(beg),
                                torch.as_tensor(end),
                                torch.as_tensor(beg < outh),
                                torch.as_tensor(blend),
-                               torch.as_tensor(scanlines), outh)
-        same(got, want, f"outh {outh} v_fac {v_fac}")
+                               torch.as_tensor(scanlines), outh,
+                               bloom=drawn if bloom else None)
+        same(got, want, f"outh {outh} v_fac {v_fac} bloom {bloom}")
 
 
 @pytest.mark.gpu
