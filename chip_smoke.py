@@ -543,12 +543,12 @@ def bound(work):
 
 
 class Kernel:
-    """One kernel: its wrapper (module attribute `wrapper`), launch counter
-    (module attribute `counter`), plain version and work counter; `inplace`
-    if it writes its first argument in place (K12, K13)."""
+    """One kernel: its wrapper (module attribute `wrapper`), plain version
+    and work counter; `inplace` if it writes its first argument in place
+    (K12, K13)."""
 
-    def __init__(self, mod, wrapper, counter, plain, work, inplace=False):
-        self.mod, self.wrapper, self.counter = mod, wrapper, counter
+    def __init__(self, mod, wrapper, plain, work, inplace=False):
+        self.mod, self.wrapper = mod, wrapper
         self.plain, self.work, self.inplace = plain, work, inplace
 
     def fresh(self, a):
@@ -556,65 +556,51 @@ class Kernel:
         copied, so that each call starts from the same values."""
         return (a[0].clone(), *a[1:]) if self.inplace else a
 
-    @property
-    def launches(self) -> int:
-        return getattr(self.mod, self.counter)
-
-    def reset(self) -> None:
-        setattr(self.mod, self.counter, 0)
-
 
 def kernel_modules():
-    """name -> Kernel, for every kernel of ORIGIN."""
+    """name -> Kernel, for every kernel of ORIGIN; the name is also its
+    key in build.LAUNCHES."""
     from ntsc_crt_tpu_torch.ops.kernels import (ccf, decode, encode, hsync,
                                                 nes, noise, place, probe,
                                                 rowfilters, scanconv, vhs)
-    dec = lambda counter: Kernel(decode, "decode_rows", counter,  # noqa: E731
-                                 decode.decode_rows_plain, work_decode)
+    dec = Kernel(decode, "decode_rows", decode.decode_rows_plain, work_decode)
     return {
-        "encode_rows": Kernel(encode, "encode_rows", "LAUNCHES",
-                              encode.encode_rows_plain, work_encode),
-        "decode_rows": dec("LAUNCHES"),
-        "decode_rows_conv": dec("CONV_LAUNCHES"),
-        "decode_rows_bloom": dec("BLOOM_LAUNCHES"),
+        "encode_rows": Kernel(encode, "encode_rows", encode.encode_rows_plain,
+                              work_encode),
+        "decode_rows": dec,
+        "decode_rows_conv": dec,
+        "decode_rows_bloom": dec,
         "bloom_line_width": Kernel(decode, "bloom_line_width",
-                                   "LINE_WIDTH_LAUNCHES",
                                    decode.bloom_line_width_plain,
                                    work_line_width),
-        "hsync_chase": Kernel(hsync, "hsync_chase", "LAUNCHES",
-                              hsync.hsync_chase_plain, work_hsync),
-        "ccf_ema": Kernel(ccf, "ccf_ema", "LAUNCHES", ccf.ccf_ema_plain,
-                          work_ccf),
+        "hsync_chase": Kernel(hsync, "hsync_chase", hsync.hsync_chase_plain,
+                              work_hsync),
+        "ccf_ema": Kernel(ccf, "ccf_ema", ccf.ccf_ema_plain, work_ccf),
         "vhs_region_b_entries": Kernel(vhs, "vhs_region_b_entries",
-                                       "LAUNCHES",
                                        vhs.vhs_region_b_entries_plain,
                                        work_vhs),
-        "inject_noise": Kernel(noise, "inject_noise", "LAUNCHES",
+        "inject_noise": Kernel(noise, "inject_noise",
                                noise.inject_noise_plain, work_noise),
-        "vhs_noise_bc": Kernel(noise, "vhs_noise_bc", "BC_LAUNCHES",
+        "vhs_noise_bc": Kernel(noise, "vhs_noise_bc",
                                noise.vhs_noise_bc_plain, work_vhs_noise,
                                inplace=True),
-        "nes_square": Kernel(nes, "nes_square", "LAUNCHES",
-                             nes.nes_square_plain, work_nes, inplace=True),
-        "place_rows_uniform": Kernel(place, "place_rows_uniform", "LAUNCHES",
+        "nes_square": Kernel(nes, "nes_square", nes.nes_square_plain,
+                             work_nes, inplace=True),
+        "place_rows_uniform": Kernel(place, "place_rows_uniform",
                                      place.place_rows_uniform_plain,
                                      work_place),
         "place_rows_uniform_bloom": Kernel(place, "place_rows_uniform",
-                                           "BLOOM_LAUNCHES",
                                            place.place_rows_uniform_plain,
                                            work_place),
         "iir_lowpass_rows": Kernel(rowfilters, "iir_lowpass_rows",
-                                   "IIR_LAUNCHES",
                                    rowfilters.iir_lowpass_rows_plain,
                                    work_iir),
         "eq_threeband_rows": Kernel(rowfilters, "eq_threeband_rows",
-                                    "EQ_LAUNCHES",
                                     rowfilters.eq_threeband_rows_plain,
                                     work_eq3),
-        "scanconv_rows": Kernel(scanconv, "scanconv_rows", "LAUNCHES",
+        "scanconv_rows": Kernel(scanconv, "scanconv_rows",
                                 scanconv.scanconv_rows_plain, work_scanconv),
-        "probe": Kernel(probe, "probe", "LAUNCHES", probe.probe_plain,
-                        work_probe)}
+        "probe": Kernel(probe, "probe", probe.probe_plain, work_probe)}
 
 
 def path_args(B, i, dev):
@@ -1817,11 +1803,10 @@ def counted(label, needed, run):
     """run() with every launch count zeroed just before it and read just
     after; fails unless each kernel of `needed` launched and no other did.
     Returns (the counts, run's result)."""
-    mods = kernel_modules()
-    for k in mods.values():
-        k.reset()
+    from ntsc_crt_tpu_torch.ops.kernels import build
+    build.LAUNCHES.clear()
     result = run()
-    launches = {name: k.launches for name, k in mods.items()}
+    launches = {name: build.LAUNCHES[name] for name in kernel_modules()}
     print(f"{label}: launches {launches}", flush=True)
     missing = [k for k in needed if launches[k] == 0]
     extra = [k for k, n in launches.items() if n and k not in needed]

@@ -25,6 +25,10 @@ CRT_DO_HSYNC = 0).  Each stage keeps one formulation, the plain one:
    of rows and the knobs are host ints; otherwise each output row takes the
    last line that covers it, blended with the previous frame if asked
    (crt_core.c:552-664).
+
+Under a profiler each stage records its span (``utils/profiling.py``
+``span``): ``ntsc.demodulate.noise``, ``.vsync``, ``.line_scan`` (with
+bloom's line widths), ``.decode`` and ``.place``.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from ntsc_crt_tpu_torch.ops.kernels import ccf, decode, hsync, place, vhs
 from ntsc_crt_tpu_torch.ops.kernels import noise as noise_kernels
 from ntsc_crt_tpu_torch.models.modulate import _b
 from ntsc_crt_tpu_torch.parallel import spatial
+from ntsc_crt_tpu_torch.utils import profiling
 
 Knob = Union[int, torch.Tensor]
 
@@ -343,52 +348,60 @@ def demodulate_core(
     hue_sn, hue_cs = sn >> 11, cs >> 11                   # crt_core.c:318-320
     saturation = _b(mon.saturation, B, dev)
 
-    if cfg.vhs_noise:
-        inp_flat, randstate, rn_new = _inject_noise_vhs(
-            cfg, analog.view(B, -1), _b(randstate, B, dev), noise)
-        inp2d = inp_flat.reshape(analog.shape)
-    else:
-        inp2d, rn_new = _inject_noise(cfg, analog, _b(rn, B, dev), noise)
-    if do_vsync:
-        vsync_new, field = _find_vsync(cfg, inp2d, _b(vsync, B, dev))
-    else:
-        # CRT_DO_VSYNC=0 (crt_core.c:323-341): the field parity comes from
-        # the clean signal and the vsync position is pinned to -3
-        _, field = _find_vsync(cfg, analog, _b(vsync, B, dev))
-        vsync_new = torch.full((B,), -3, dtype=torch.int32, device=dev)
-    ratio = ((outh << 16) // cfg.lines + 32768) >> 16
-    field_px = field * (ratio // 2)
+    with profiling.span("demodulate.noise"):
+        if cfg.vhs_noise:
+            inp_flat, randstate, rn_new = _inject_noise_vhs(
+                cfg, analog.view(B, -1), _b(randstate, B, dev), noise)
+            inp2d = inp_flat.reshape(analog.shape)
+        else:
+            inp2d, rn_new = _inject_noise(cfg, analog, _b(rn, B, dev), noise)
+    with profiling.span("demodulate.vsync"):
+        if do_vsync:
+            vsync_new, field = _find_vsync(cfg, inp2d, _b(vsync, B, dev))
+        else:
+            # CRT_DO_VSYNC=0 (crt_core.c:323-341): the field parity comes
+            # from the clean signal and the vsync position is pinned to -3
+            _, field = _find_vsync(cfg, analog, _b(vsync, B, dev))
+            vsync_new = torch.full((B,), -3, dtype=torch.int32, device=dev)
 
-    hsync_new, ccf_new, outs, rolled4 = _line_scan(
-        cfg, inp2d, _b(hsync, B, dev), ccf.to(torch.int32), vsync_new,
-        _b(mon.hue, B, dev), hue_sn, hue_cs, saturation, outh, v_fac,
-        field_px, do_hsync=do_hsync)
-    xpos_l, beg_l, end_l, active_l, wvI_l, wvQ_l = outs
+    with profiling.span("demodulate.line_scan"):
+        ratio = ((outh << 16) // cfg.lines + 32768) >> 16
+        field_px = field * (ratio // 2)
+        hsync_new, ccf_new, outs, rolled4 = _line_scan(
+            cfg, inp2d, _b(hsync, B, dev), ccf.to(torch.int32), vsync_new,
+            _b(mon.hue, B, dev), hue_sn, hue_cs, saturation, outh, v_fac,
+            field_px, do_hsync=do_hsync)
+        xpos_l, beg_l, end_l, active_l, wvI_l, wvQ_l = outs
 
-    # line l reads field rows l+3 and l+4 (ynudge=+3), i.e. rolled4 from row 3
-    shifts, bloom, drawn = xpos_l, {}, None
-    if do_bloom:
-        dx_l, scan_l = _bloom_lines(cfg, rolled4, xpos_l, noise, outw)
-        lidx_l = scan_l >> 12
-        shifts = xpos_l + lidx_l          # the EQ starts at scanL >> 12
-        # the carrier phase at that start: tables rotated by lidx mod CC
-        rot = (torch.arange(CC, device=dev) + (lidx_l % CC)[..., None]) % CC
-        wvI_l = torch.gather(wvI_l, 2, rot)
-        wvQ_l = torch.gather(wvQ_l, 2, rot)
-        bloom = dict(bloom_dx=dx_l.contiguous(),
-                     bloom_lidx=lidx_l.contiguous())
-        drawn = dict(bloom_dx=bloom["bloom_dx"],
-                     bloom_scan=scan_l.contiguous(), av_len=AV)
+        # line l reads field rows l+3 and l+4 (ynudge=+3), i.e. rolled4
+        # from row 3
+        shifts, bloom, drawn = xpos_l, {}, None
+        if do_bloom:
+            dx_l, scan_l = _bloom_lines(cfg, rolled4, xpos_l, noise, outw)
+            lidx_l = scan_l >> 12
+            shifts = xpos_l + lidx_l          # the EQ starts at scanL >> 12
+            # the carrier phase at that start: tables rotated by lidx mod CC
+            rot = (torch.arange(CC, device=dev)
+                   + (lidx_l % CC)[..., None]) % CC
+            wvI_l = torch.gather(wvI_l, 2, rot)
+            wvQ_l = torch.gather(wvQ_l, 2, rot)
+            bloom = dict(bloom_dx=dx_l.contiguous(),
+                         bloom_lidx=lidx_l.contiguous())
+            drawn = dict(bloom_dx=bloom["bloom_dx"],
+                         bloom_scan=scan_l.contiguous(), av_len=AV)
     # K2, split by line over the active spatial group: line l reads rolled4
     # rows l + 3 and l + 4, so a block of lines [lo, hi) takes [lo, hi + 4)
-    rgb = spatial.shard_lines_call(
-        decode.decode_rows, rolled4, shifts.contiguous(), wvI_l.contiguous(),
-        wvQ_l.contiguous(), bright[:, None].expand(B, L).contiguous(),
-        _b(mon.contrast, B, dev)[:, None].expand(B, L).contiguous(),
-        halo={0: 4}, row0=3, coefs=coefs, av_len=AV, outw=outw, **bloom)
-    out_new = _place_rows(rgb, out_prev, beg_l, end_l, active_l, mon.blend,
-                          mon.scanlines, outh, bloom=drawn,
-                          field_px=field_px, v_fac=v_fac)
+    with profiling.span("demodulate.decode"):
+        rgb = spatial.shard_lines_call(
+            decode.decode_rows, rolled4, shifts.contiguous(),
+            wvI_l.contiguous(), wvQ_l.contiguous(),
+            bright[:, None].expand(B, L).contiguous(),
+            _b(mon.contrast, B, dev)[:, None].expand(B, L).contiguous(),
+            halo={0: 4}, row0=3, coefs=coefs, av_len=AV, outw=outw, **bloom)
+    with profiling.span("demodulate.place"):
+        out_new = _place_rows(rgb, out_prev, beg_l, end_l, active_l,
+                              mon.blend, mon.scanlines, outh, bloom=drawn,
+                              field_px=field_px, v_fac=v_fac)
     return out_new, dict(hsync=hsync_new, vsync=vsync_new, ccf=ccf_new,
                          rn=rn_new, randstate=randstate)
 

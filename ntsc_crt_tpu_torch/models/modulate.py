@@ -19,6 +19,10 @@ the field is built in three phases:
    waves are kernel K13 (ops/kernels/nes.py), which stores its block itself
    (the JAX package leaves that pass to XLA).
 
+Under a profiler phases 1-2 record the span ``ntsc.modulate.field`` (on
+VHS a second one around the sync kill) and phase 3 ``ntsc.modulate.encode``
+(``utils/profiling.py`` ``span``); NES's one kernel is its ``encode``.
+
 The JAX package's one-hot einsums (its TPU gathers) are plain indexing here.
 """
 
@@ -34,6 +38,7 @@ from ntsc_crt_tpu_torch.ops import fastpath, filters, lcg
 from ntsc_crt_tpu_torch.ops.fixedpoint import cdiv, crem, i32, sincos14
 from ntsc_crt_tpu_torch.ops.kernels import encode, nes
 from ntsc_crt_tpu_torch.parallel import spatial
+from ntsc_crt_tpu_torch.utils import profiling
 
 
 def _b(x, B: int, device) -> torch.Tensor:
@@ -215,58 +220,63 @@ def modulate_rgb(
     xo = (cfg.av_beg + xoffset + (cfg.av_len - destw) // 2) & ~3  # :203
     yo = cfg.top + yoffset + (cfg.lines - desth) // 2
 
-    inv_phase = (field == frame).to(torch.int32)          # crt_ntsc.c:199
-    if cfg.chroma_pattern == CHROMA_CHECKERED:
-        ph = 1 - 2 * (inv_phase & 1)                      # CC_PHASE
-        flip = inv_phase * (CC // 2)
-    else:
-        ph = torch.ones((B,), dtype=torch.int32, device=dev)
-        flip = torch.zeros((B,), dtype=torch.int32, device=dev)
+    with profiling.span("modulate.field"):
+        inv_phase = (field == frame).to(torch.int32)      # crt_ntsc.c:199
+        if cfg.chroma_pattern == CHROMA_CHECKERED:
+            ph = 1 - 2 * (inv_phase & 1)                  # CC_PHASE
+            flip = inv_phase * (CC // 2)
+        else:
+            ph = torch.ones((B,), dtype=torch.int32, device=dev)
+            flip = torch.zeros((B,), dtype=torch.int32, device=dev)
 
-    # carrier tables (B, CC) (crt_ntsc.c:174-188)
-    k = torch.arange(CC, dtype=torch.int32, device=dev)[None, :]
-    n_ang = hue[:, None] + k * (360 // CC)
-    burst_sn, _ = sincos14(cdiv((n_ang + cfg.hue_offset) * 8192, 180))
-    modI_sn, _ = sincos14(cdiv(n_ang * 8192, 180))
-    modQ_sn, _ = sincos14(cdiv((n_ang + cfg.q_offset) * 8192, 180))
-    on = (_b(as_color, B, dev) != 0)[:, None]
-    ccburst = torch.where(on, burst_sn >> 10, 0)
-    ccmodI = torch.where(on, modI_sn >> 10, 0)
-    ccmodQ = torch.where(on, modQ_sn >> 10, 0)
+        # carrier tables (B, CC) (crt_ntsc.c:174-188)
+        k = torch.arange(CC, dtype=torch.int32, device=dev)[None, :]
+        n_ang = hue[:, None] + k * (360 // CC)
+        burst_sn, _ = sincos14(cdiv((n_ang + cfg.hue_offset) * 8192, 180))
+        modI_sn, _ = sincos14(cdiv(n_ang * 8192, 180))
+        modQ_sn, _ = sincos14(cdiv((n_ang + cfg.q_offset) * 8192, 180))
+        on = (_b(as_color, B, dev) != 0)[:, None]
+        ccburst = torch.where(on, burst_sn >> 10, 0)
+        ccmodI = torch.where(on, modI_sn >> 10, 0)
+        ccmodQ = torch.where(on, modQ_sn >> 10, 0)
 
-    # --- skeleton + burst ---------------------------------------------------
-    skel_even, skel_odd, mask, vrows = _field_constants(cfg, dev)
-    skel = torch.where((field == 1)[:, None, None], skel_odd, skel_even)
-    analog = torch.where(mask, skel, analog)   # a new field: the writes
-    #                                            below leave the caller's alone
+        # --- skeleton + burst -----------------------------------------------
+        skel_even, skel_odd, mask, vrows = _field_constants(cfg, dev)
+        skel = torch.where((field == 1)[:, None, None], skel_odd, skel_even)
+        # a new field: the writes below leave the caller's alone
+        analog = torch.where(mask, skel, analog)
 
-    t = torch.arange(cfg.burst_len, device=dev) + cfg.cb_beg
-    cb_idx = (t[None, :] + flip[:, None]) % CC            # (B, burst_len)
-    burst_vals = (cfg.blank_level + torch.gather(ccburst, 1, cb_idx)
-                  * cfg.burst_level) >> 5
-    seg = analog[:, :, cfg.cb_beg:cfg.cb_beg + cfg.burst_len]
-    analog[:, :, cfg.cb_beg:cfg.cb_beg + cfg.burst_len] = torch.where(
-        vrows[None, :, None], burst_vals[:, None, :].to(torch.int8), seg)
+        t = torch.arange(cfg.burst_len, device=dev) + cfg.cb_beg
+        cb_idx = (t[None, :] + flip[:, None]) % CC        # (B, burst_len)
+        burst_vals = (cfg.blank_level + torch.gather(ccburst, 1, cb_idx)
+                      * cfg.burst_level) >> 5
+        seg = analog[:, :, cfg.cb_beg:cfg.cb_beg + cfg.burst_len]
+        analog[:, :, cfg.cb_beg:cfg.cb_beg + cfg.burst_len] = torch.where(
+            vrows[None, :, None], burst_vals[:, None, :].to(torch.int8), seg)
 
-    # iccf export: last burst write per phase class (crt_ntsc.c:249, 325-329)
-    icc_idx = (k.long() + flip[:, None]) % CC
-    iccf = (cfg.blank_level + torch.gather(ccburst, 1, icc_idx)
-            * cfg.burst_level) >> 5
-    ccf = (iccf << 7)[:, None, :].expand(B, cfg.cc_vper, CC).contiguous()
+        # iccf export: last burst write per phase class (crt_ntsc.c:249,
+        # 325-329)
+        icc_idx = (k.long() + flip[:, None]) % CC
+        iccf = (cfg.blank_level + torch.gather(ccburst, 1, icc_idx)
+                * cfg.burst_level) >> 5
+        ccf = (iccf << 7)[:, None, :].expand(B, cfg.cc_vper, CC).contiguous()
 
     # --- active video --------------------------------------------------------
-    y_idx = torch.arange(desth, dtype=torch.int32, device=dev)[None, :]
-    field_offset = cdiv(cdiv(field * h + desth, desth), 2)[:, None]
-    # C reads one row past the image at the bottom (UB); clamp to the last
-    sy = ((y_idx * h) // desth + field_offset).clamp(max=h - 1)
+    with profiling.span("modulate.encode"):
+        y_idx = torch.arange(desth, dtype=torch.int32, device=dev)[None, :]
+        field_offset = cdiv(cdiv(field * h + desth, desth), 2)[:, None]
+        # C reads one row past the image at the bottom (UB); clamp to the
+        # last
+        sy = ((y_idx * h) // desth + field_offset).clamp(max=h - 1)
 
-    per_row = lambda m: (m * ph[:, None])[:, None].expand(  # noqa: E731
-        B, desth, CC).contiguous()
-    ire = _encode_lines(img, sy, per_row(ccmodI), per_row(ccmodQ),
-                        cdiv(cfg.white_level * white_point, 100),
-                        cfg.black_level + black_point, coefs=_iir_coefs(cfg),
-                        xo_mod=xo % CC, destw=destw)
-    return fastpath.store_active(analog, ire, xo, yo), ccf
+        per_row = lambda m: (m * ph[:, None])[:, None].expand(  # noqa: E731
+            B, desth, CC).contiguous()
+        ire = _encode_lines(img, sy, per_row(ccmodI), per_row(ccmodQ),
+                            cdiv(cfg.white_level * white_point, 100),
+                            cfg.black_level + black_point,
+                            coefs=_iir_coefs(cfg), xo_mod=xo % CC,
+                            destw=destw)
+        return fastpath.store_active(analog, ire, xo, yo), ccf
 
 
 # ---------------------------------------------------------------------------
@@ -297,23 +307,25 @@ def modulate_vhs(
         do_bloom=do_bloom)
     dev = analog.device
     B = analog.shape[0]
-    do_ab = _b(do_aberration, B, dev) != 0
-    rs = _b(randstate, B, dev)
-    rs_next = lcg.crt_rand_step(rs)
-    aberration = torch.where(
-        do_ab, (crem(lcg.crt_rand_out(rs_next), 12) - 8) + 14, 0)
-    randstate = torch.where(do_ab, rs_next, rs)
+    with profiling.span("modulate.field"):
+        do_ab = _b(do_aberration, B, dev) != 0
+        rs = _b(randstate, B, dev)
+        rs_next = lcg.crt_rand_step(rs)
+        aberration = torch.where(
+            do_ab, (crem(lcg.crt_rand_out(rs_next), 12) - 8) + 14, 0)
+        randstate = torch.where(do_ab, rs_next, rs)
 
-    # analog is modulate_rgb's fresh buffer, so the kill writes in place
-    V = cfg.vres
-    rows = torch.arange(V, dtype=torch.int32, device=dev)[None, :]
-    _, _, _, vrows = _field_constants(cfg, dev)
-    kill = vrows[None, :] & (rows >= V - aberration[:, None])   # (B, V)
-    analog[:, :, :cfg.bw_beg].masked_fill_(kill[:, :, None], cfg.blank_level)
+        # analog is modulate_rgb's fresh buffer, so the kill writes in place
+        V = cfg.vres
+        rows = torch.arange(V, dtype=torch.int32, device=dev)[None, :]
+        _, _, _, vrows = _field_constants(cfg, dev)
+        kill = vrows[None, :] & (rows >= V - aberration[:, None])  # (B, V)
+        analog[:, :, :cfg.bw_beg].masked_fill_(kill[:, :, None],
+                                               cfg.blank_level)
 
-    ccf = torch.zeros((B, cfg.cc_vper, cfg.cc_samples), dtype=torch.int32,
-                      device=dev)
-    return analog, ccf, randstate
+        ccf = torch.zeros((B, cfg.cc_vper, cfg.cc_samples),
+                          dtype=torch.int32, device=dev)
+        return analog, ccf, randstate
 
 
 # ---------------------------------------------------------------------------
@@ -405,35 +417,40 @@ def modulate_vper(
     yo = cfg.top + yoffset + (cfg.lines - desth) // 2
 
     step = 360 // CC
-    ccburst, ccmodI, ccmodQ = _vper_tables(
-        cfg, _b(dot_crawl_offset, B, dev), hue[:, None, None],
-        cfg.hue_offset - step, cfg.q_offset)
-    on = (_b(as_color, B, dev) != 0)[:, None, None]
-    ccburst, ccmodI, ccmodQ = (torch.where(on, t, 0)
-                               for t in (ccburst, ccmodI, ccmodQ))
+    with profiling.span("modulate.field"):
+        ccburst, ccmodI, ccmodQ = _vper_tables(
+            cfg, _b(dot_crawl_offset, B, dev), hue[:, None, None],
+            cfg.hue_offset - step, cfg.q_offset)
+        on = (_b(as_color, B, dev) != 0)[:, None, None]
+        ccburst, ccmodI, ccmodQ = (torch.where(on, t, 0)
+                                   for t in (ccburst, ccmodI, ccmodQ))
 
-    skel_even, skel_odd, mask, vrows = _field_constants(cfg, dev)
-    skel = torch.where((field == 1)[:, None, None], skel_odd, skel_even)
-    analog = torch.where(mask, skel, analog)
+        skel_even, skel_odd, mask, vrows = _field_constants(cfg, dev)
+        skel = torch.where((field == 1)[:, None, None], skel_odd, skel_even)
+        analog = torch.where(mask, skel, analog)
 
-    burst = slice(cfg.cb_beg, cfg.cb_beg + cfg.burst_len)
-    analog[:, :, burst] = torch.where(
-        vrows[None, :, None], _burst_rows(ccburst, cfg, 0, cfg.vres),
-        analog[:, :, burst])
+        burst = slice(cfg.cb_beg, cfg.cb_beg + cfg.burst_len)
+        analog[:, :, burst] = torch.where(
+            vrows[None, :, None], _burst_rows(ccburst, cfg, 0, cfg.vres),
+            analog[:, :, burst])
 
-    # iccf[(n+3) % VP][k] is written from class n % VP (crt_snes.c:239)
-    src = (torch.arange(VP, device=dev) - 3) % VP
-    ccf = ((cfg.blank_level + ccburst[:, src] * cfg.burst_level) >> 5) << 7
+        # iccf[(n+3) % VP][k] is written from class n % VP (crt_snes.c:239)
+        src = (torch.arange(VP, device=dev) - 3) % VP
+        ccf = ((cfg.blank_level + ccburst[:, src] * cfg.burst_level)
+               >> 5) << 7
 
-    y_idx = torch.arange(desth, dtype=torch.int32, device=dev)[None, :]
-    if cfg.interlace_offset:
-        field_offset = cdiv(cdiv(field * h + desth, desth), 2)[:, None]
-    else:
-        field_offset = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-    sy = ((y_idx * h) // desth + field_offset).clamp(max=h - 1)
-    analog = _encode_vper(cfg, analog, img, sy, ccmodI, ccmodQ, black_point,
-                          white_point, xo, yo, destw, _iir_coefs(cfg))
-    return analog, ccf
+    with profiling.span("modulate.encode"):
+        y_idx = torch.arange(desth, dtype=torch.int32, device=dev)[None, :]
+        if cfg.interlace_offset:
+            field_offset = cdiv(cdiv(field * h + desth, desth), 2)[:, None]
+        else:
+            field_offset = torch.zeros((B, 1), dtype=torch.int32,
+                                       device=dev)
+        sy = ((y_idx * h) // desth + field_offset).clamp(max=h - 1)
+        analog = _encode_vper(cfg, analog, img, sy, ccmodI, ccmodQ,
+                              black_point, white_point, xo, yo, destw,
+                              _iir_coefs(cfg))
+        return analog, ccf
 
 
 # ---------------------------------------------------------------------------
@@ -463,20 +480,23 @@ def modulate_nesrgb(
     xo = (cfg.av_beg + xoffset) & ~3
     yo = cfg.top + yoffset
 
-    ccburst, ccmodI, ccmodQ = _vper_tables(
-        cfg, _b(dot_crawl_offset, B, dev), 0, hue[:, None, None] + 123, -90)
+    with profiling.span("modulate.field"):
+        ccburst, ccmodI, ccmodQ = _vper_tables(
+            cfg, _b(dot_crawl_offset, B, dev), 0, hue[:, None, None] + 123,
+            -90)
 
-    analog = _nes_skeleton(cfg, dev).expand(B, -1, -1).clone()
-    analog[:, yo:yo + desth, cfg.cb_beg:cfg.cb_beg + cfg.burst_len] = \
-        _burst_rows(ccburst, cfg, yo, desth)
-    ccf = ((cfg.blank_level + ccburst * cfg.burst_level) >> 5) << 7
+        analog = _nes_skeleton(cfg, dev).expand(B, -1, -1).clone()
+        analog[:, yo:yo + desth, cfg.cb_beg:cfg.cb_beg + cfg.burst_len] = \
+            _burst_rows(ccburst, cfg, yo, desth)
+        ccf = ((cfg.blank_level + ccburst * cfg.burst_level) >> 5) << 7
 
-    y_idx = torch.arange(desth, dtype=torch.int32, device=dev)[None, :]
-    sy = ((y_idx * h) // desth).clamp(0, h - 1).expand(B, desth)
-    analog = _encode_vper(cfg, analog, img, sy, ccmodI, ccmodQ,
-                          _b(black_point, B, dev), _b(white_point, B, dev),
-                          xo, yo, destw, None)
-    return analog, ccf
+    with profiling.span("modulate.encode"):
+        y_idx = torch.arange(desth, dtype=torch.int32, device=dev)[None, :]
+        sy = ((y_idx * h) // desth).clamp(0, h - 1).expand(B, desth)
+        analog = _encode_vper(cfg, analog, img, sy, ccmodI, ccmodQ,
+                              _b(black_point, B, dev),
+                              _b(white_point, B, dev), xo, yo, destw, None)
+        return analog, ccf
 
 
 # ---------------------------------------------------------------------------
@@ -515,16 +535,16 @@ def modulate_nes(
     # the skeleton is build_skeleton_nes's: sync from SYNC_BEG to BW_BEG, to
     # PPUpx2pos(327) on lines 259-261; the border's rows run TOP..BOT+2
     # from LAV_BEG
-    return nes.nes_square(
-        torch.empty_like(analog), ppu, nes.square_table(dev),
-        _b(dot_crawl_offset, B, dev), _b(black_point, B, dev),
-        _b(white_point, B, dev), _b(border_color, B, dev), _b(hue, B, dev),
-        nes.burst_sines(dev), xo=xo, yo=yo, destw=destw, desth=desth,
-        draw_border=draw_border, box=(cfg.top, cfg.bot + 3, cfg.lav_beg),
-        vp=cfg.cc_vper, skeleton=(cfg.sync_beg, cfg.bw_beg, 259,
-                                  327 * H // 341, cfg.sync_level,
-                                  cfg.blank_level),
-        burst_box=(brow0, brows, cfg.cb_beg, cfg.burst_len),
-        cc=cfg.cc_samples, vert_step=cfg.vert_step,
-        burst_level=cfg.burst_level,
-        black_level=cfg.black_level)
+    with profiling.span("modulate.encode"):
+        return nes.nes_square(
+            torch.empty_like(analog), ppu, nes.square_table(dev),
+            _b(dot_crawl_offset, B, dev), _b(black_point, B, dev),
+            _b(white_point, B, dev), _b(border_color, B, dev),
+            _b(hue, B, dev), nes.burst_sines(dev), xo=xo, yo=yo,
+            destw=destw, desth=desth, draw_border=draw_border,
+            box=(cfg.top, cfg.bot + 3, cfg.lav_beg), vp=cfg.cc_vper,
+            skeleton=(cfg.sync_beg, cfg.bw_beg, 259, 327 * H // 341,
+                      cfg.sync_level, cfg.blank_level),
+            burst_box=(brow0, brows, cfg.cb_beg, cfg.burst_len),
+            cc=cfg.cc_samples, vert_step=cfg.vert_step,
+            burst_level=cfg.burst_level, black_level=cfg.black_level)

@@ -23,6 +23,7 @@ from ntsc_crt_tpu_torch.models import demodulate as _dem
 from ntsc_crt_tpu_torch.models import modulate as _mod
 from ntsc_crt_tpu_torch.models.demodulate import MonitorParams
 from ntsc_crt_tpu_torch.models.systems import SystemConfig
+from ntsc_crt_tpu_torch.utils import profiling
 
 
 class CRTState(NamedTuple):
@@ -122,33 +123,37 @@ def modulate(cfg: SystemConfig, state: CRTState, img: torch.Tensor, *,
     and optimized (NES_OPTIMIZED) NES; do_bloom (CRT_DO_BLOOM, which shrinks
     the drawn picture), raw, field, frame and as_color the RGB encoders but
     NESRGB."""
-    state, img, batched = _lift(state, img)
-    kw = dict(hue=hue, xoffset=xoffset, yoffset=yoffset,
-              black_point=black_point, white_point=white_point)
-    rgb_kw = dict(kw, field=field, frame=frame, as_color=as_color, raw=raw,
-                  do_bloom=do_bloom)
-    if cfg.name.startswith("NTSCVHS"):
-        analog, ccf, randstate = _mod.modulate_vhs(
-            cfg, state.analog, img, state.randstate,
-            do_aberration=do_aberration, **rgb_kw)
-        # hsync resets each frame so only the bottom warps (crt_ntscvhs.c:258)
-        state = state._replace(randstate=randstate,
-                               hsync=torch.zeros_like(state.hsync))
-    elif cfg.name == "NES":
-        analog, ccf = _mod.modulate_nes(
-            cfg, state.analog, img, dot_crawl_offset=dot_crawl_offset,
-            border_color=border_color, draw_border=draw_border,
-            optimized=optimized, **kw)
-    elif cfg.name == "NESRGB":
-        analog, ccf = _mod.modulate_nesrgb(
-            cfg, state.analog, img, dot_crawl_offset=dot_crawl_offset, **kw)
-    elif cfg.cc_vper > 1:                                 # SNES/TEMPLATE/PV1K
-        analog, ccf = _mod.modulate_vper(
-            cfg, state.analog, img, dot_crawl_offset=dot_crawl_offset,
-            **rgb_kw)
-    else:                                                 # NTSC, NTSC_RAINBOW
-        analog, ccf = _mod.modulate_rgb(cfg, state.analog, img, **rgb_kw)
-    return _unlift(state._replace(analog=analog, ccf=ccf), batched)
+    with profiling.span("modulate"):
+        state, img, batched = _lift(state, img)
+        kw = dict(hue=hue, xoffset=xoffset, yoffset=yoffset,
+                  black_point=black_point, white_point=white_point)
+        rgb_kw = dict(kw, field=field, frame=frame, as_color=as_color,
+                      raw=raw, do_bloom=do_bloom)
+        if cfg.name.startswith("NTSCVHS"):
+            analog, ccf, randstate = _mod.modulate_vhs(
+                cfg, state.analog, img, state.randstate,
+                do_aberration=do_aberration, **rgb_kw)
+            # hsync resets each frame so only the bottom warps
+            # (crt_ntscvhs.c:258)
+            state = state._replace(randstate=randstate,
+                                   hsync=torch.zeros_like(state.hsync))
+        elif cfg.name == "NES":
+            analog, ccf = _mod.modulate_nes(
+                cfg, state.analog, img, dot_crawl_offset=dot_crawl_offset,
+                border_color=border_color, draw_border=draw_border,
+                optimized=optimized, **kw)
+        elif cfg.name == "NESRGB":
+            analog, ccf = _mod.modulate_nesrgb(
+                cfg, state.analog, img, dot_crawl_offset=dot_crawl_offset,
+                **kw)
+        elif cfg.cc_vper > 1:                             # SNES/TEMPLATE/PV1K
+            analog, ccf = _mod.modulate_vper(
+                cfg, state.analog, img, dot_crawl_offset=dot_crawl_offset,
+                **rgb_kw)
+        else:                                             # NTSC, NTSC_RAINBOW
+            analog, ccf = _mod.modulate_rgb(cfg, state.analog, img,
+                                            **rgb_kw)
+        return _unlift(state._replace(analog=analog, ccf=ccf), batched)
 
 
 def demodulate(cfg: SystemConfig, state: CRTState, noise=0,
@@ -162,14 +167,15 @@ def demodulate(cfg: SystemConfig, state: CRTState, noise=0,
     do_vsync/do_hsync=False the CRT_DO_VSYNC/CRT_DO_HSYNC=0 builds (fixed
     sync positions, crt_core.h:71-72)."""
     mon = mon or MonitorParams()
-    state, _, batched = _lift(state, None)
-    out, new = _dem.demodulate_core(
-        cfg, state.analog, state.out, state.hsync, state.vsync, state.ccf,
-        state.rn, noise, mon, randstate=state.randstate, v_fac=v_fac,
-        eq_mode=eq_mode, do_bloom=do_bloom, do_vsync=do_vsync,
-        do_hsync=do_hsync)
-    state = state._replace(out=out, **new)
-    return _unlift(state, batched)
+    with profiling.span("demodulate"):
+        state, _, batched = _lift(state, None)
+        out, new = _dem.demodulate_core(
+            cfg, state.analog, state.out, state.hsync, state.vsync,
+            state.ccf, state.rn, noise, mon, randstate=state.randstate,
+            v_fac=v_fac, eq_mode=eq_mode, do_bloom=do_bloom,
+            do_vsync=do_vsync, do_hsync=do_hsync)
+        state = state._replace(out=out, **new)
+        return _unlift(state, batched)
 
 
 def step(cfg: SystemConfig, state: CRTState, img: torch.Tensor, *,
@@ -188,16 +194,17 @@ def step(cfg: SystemConfig, state: CRTState, img: torch.Tensor, *,
     draw_border/border_color (NES_BORDER, crt_nes.c:69), optimized
     (NES_OPTIMIZED, crt_nes.c:63)."""
     mon = mon or MonitorParams()
-    state = modulate(cfg, state, img, field=field, frame=frame, hue=hue,
-                     as_color=as_color, black_point=mon.black_point,
-                     white_point=mon.white_point, raw=raw,
-                     dot_crawl_offset=dot_crawl_offset,
-                     do_aberration=do_aberration, do_bloom=do_bloom,
-                     border_color=border_color, draw_border=draw_border,
-                     optimized=optimized)
-    return demodulate(cfg, state, noise=noise, mon=mon, v_fac=v_fac,
-                      eq_mode=eq_mode, do_bloom=do_bloom, do_vsync=do_vsync,
-                      do_hsync=do_hsync)
+    with profiling.span("step"):
+        state = modulate(cfg, state, img, field=field, frame=frame, hue=hue,
+                         as_color=as_color, black_point=mon.black_point,
+                         white_point=mon.white_point, raw=raw,
+                         dot_crawl_offset=dot_crawl_offset,
+                         do_aberration=do_aberration, do_bloom=do_bloom,
+                         border_color=border_color, draw_border=draw_border,
+                         optimized=optimized)
+        return demodulate(cfg, state, noise=noise, mon=mon, v_fac=v_fac,
+                          eq_mode=eq_mode, do_bloom=do_bloom,
+                          do_vsync=do_vsync, do_hsync=do_hsync)
 
 
 def step_batch(cfg: SystemConfig, states: CRTState, imgs: torch.Tensor,

@@ -8,11 +8,12 @@ edited kernel rebuilds and an unchanged one loads from the cache.  The
 library is bound with ctypes: every pointer and the stream are
 ``c_void_p`` (a plain int argument would cut a 64-bit pointer), every entry
 point takes the stream last and returns ``cudaGetLastError()``, and
-``launch`` raises if that is not 0.
+``launch`` raises if that is not 0.  ``LAUNCHES`` counts every launch.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -50,6 +51,11 @@ _SIGNATURES = {
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 
 _lib = None
+# launches since the process started or a reader reset them, by entry point
+# without its "ntsc_" and, where the entry point has modes, by mode
+# ("decode_rows_conv", "decode_rows_bloom", "place_rows_uniform_bloom"):
+# the kernels' names in chip_smoke.py and profiling.kernel_of
+LAUNCHES: collections.Counter = collections.Counter()
 # filled by build(): seconds nvcc took (0.0 on a cache hit) and its output
 last_build = {"seconds": None, "log": "", "path": None}
 
@@ -121,17 +127,19 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args, mode: str = None) -> None:
     """Call entry point `name` with `args` and `device`'s current stream,
     with `device` made the current card for the call: CUDA launches a
     kernel only into a stream of the current device, and torch's own ops
     leave the current device as they found it.  Raise if the launch
-    reported a CUDA error."""
+    reported a CUDA error; else count it in LAUNCHES, under `mode` where
+    the entry point's arguments choose one."""
     fn = getattr(library(), name)
     with torch.cuda.device(device):
         rc = fn(*args, stream(device))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
+    LAUNCHES[name.removeprefix("ntsc_") + (f"_{mode}" if mode else "")] += 1
 
 
 def stream(device: torch.device) -> int:

@@ -17,8 +17,6 @@ import torch
 
 from ntsc_crt_tpu_torch.ops.fixedpoint import cdiv
 
-# kernel launches since the last reset (read by chip_smoke.py)
-LAUNCHES = 0
 # the kernel's limits on VP, CC and m (csrc/ccf.cu)
 MAX_VP, MAX_CC, MAX_M = 5, 5, 16
 
@@ -33,7 +31,6 @@ def ccf_ema(per_cls: torch.Tensor, vper_l: torch.Tensor,
         return ccf_ema_plain(per_cls, vper_l, active_l, ccf0)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    global LAUNCHES
     dev = per_cls.device
     B, L, m, CC = per_cls.shape
     VP = ccf0.shape[1]
@@ -51,7 +48,6 @@ def ccf_ema(per_cls: torch.Tensor, vper_l: torch.Tensor,
     build.launch("ntsc_ccf_ema", dev, per_cls.data_ptr(), vper_l.data_ptr(),
                  active_l.data_ptr(), ccf0.data_ptr(), ccf_f.data_ptr(),
                  ccr_l.data_ptr(), B, L, m, VP, CC)
-    LAUNCHES += 1
     return ccf_f, ccr_l
 
 

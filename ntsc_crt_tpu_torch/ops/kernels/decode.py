@@ -39,13 +39,6 @@ from ntsc_crt_tpu_torch.ops import fastpath, filters
 from ntsc_crt_tpu_torch.ops.fixedpoint import cdiv
 from ntsc_crt_tpu_torch.ops.kernels import rowfilters
 
-# kernel launches since the last reset (read by chip_smoke.py), one count
-# per mode: each launch adds to exactly one of the three decode counts
-LAUNCHES = 0              # 3-band EQ, static scan conversion
-CONV_LAUNCHES = 0         # convolution EQ, static scan conversion
-BLOOM_LAUNCHES = 0        # bloom scan conversion, either EQ
-LINE_WIDTH_LAUNCHES = 0   # bloom_line_width
-
 
 def eq_len(av_len: int, cc: int) -> int:
     """Samples the bloom-mode EQ runs: av_len rounded up to the TPU
@@ -85,7 +78,6 @@ def decode_rows(rows: torch.Tensor, shifts: torch.Tensor, waveI: torch.Tensor,
                                  bloom_lidx=bloom_lidx)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    global LAUNCHES, CONV_LAUNCHES, BLOOM_LAUNCHES
     dev = rows.device
     B, NR, H = rows.shape
     L, cc = shifts.shape[1], waveI.shape[2]
@@ -114,13 +106,8 @@ def decode_rows(rows: torch.Tensor, shifts: torch.Tensor, waveI: torch.Tensor,
                  contrast.data_ptr(), bloom_dx.data_ptr() if bloom else None,
                  bloom_lidx.data_ptr() if bloom else None, ctypes.addressof(k),
                  out.data_ptr(), B, L, NR, H, row0, av_len,
-                 eq_len(av_len, cc) if bloom else av_len, outw, cc, eq)
-    if bloom:
-        BLOOM_LAUNCHES += 1
-    elif conv:
-        CONV_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+                 eq_len(av_len, cc) if bloom else av_len, outw, cc, eq,
+                 mode="bloom" if bloom else "conv" if conv else None)
     return out
 
 
@@ -235,7 +222,6 @@ def bloom_line_width(rows: torch.Tensor, xpos_l: torch.Tensor,
                                       av_len=av_len)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    global LINE_WIDTH_LAUNCHES
     dev = rows.device
     B, NR, H = rows.shape
     L = xpos_l.shape[-1]
@@ -252,7 +238,6 @@ def bloom_line_width(rows: torch.Tensor, xpos_l: torch.Tensor,
     build.launch("ntsc_bloom_line_width", dev, rows.data_ptr(),
                  xpos_l.data_ptr(), max_e.data_ptr(), out.data_ptr(), B, L,
                  NR, H, row0, av_len)
-    LINE_WIDTH_LAUNCHES += 1
     return out
 
 

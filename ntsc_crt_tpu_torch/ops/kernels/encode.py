@@ -18,9 +18,6 @@ import torch
 from ntsc_crt_tpu_torch.ops import fastpath
 from ntsc_crt_tpu_torch.ops.kernels import rowfilters
 
-# kernel launches since the last reset (read by chip_smoke.py)
-LAUNCHES = 0
-
 
 def rgb_to_yiq(pix: torch.Tensor):
     """crt_ntsc.c:307-310 — int32 elementwise over (..., 3) pixels."""
@@ -45,7 +42,6 @@ def encode_rows(img: torch.Tensor, sy: torch.Tensor, modI: torch.Tensor,
                                  coefs=coefs, xo_mod=xo_mod, destw=destw)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    global LAUNCHES
     dev = img.device
     B, h, w = img.shape[0], img.shape[1], img.shape[2]
     desth, cc = sy.shape[1], modI.shape[-1]
@@ -63,7 +59,6 @@ def encode_rows(img: torch.Tensor, sy: torch.Tensor, modI: torch.Tensor,
                  modI.data_ptr(), modQ.data_ptr(), gain.data_ptr(),
                  base.data_ptr(), out.data_ptr(), B, h, w, desth, destw, cc,
                  xo_mod, int(coefs is not None), cY, cI, cQ)
-    LAUNCHES += 1
     return out
 
 

@@ -18,8 +18,6 @@ import torch
 
 from ntsc_crt_tpu_torch.ops.fixedpoint import posmod
 
-# kernel launches since the last reset (read by chip_smoke.py)
-LAUNCHES = 0
 # the kernel's limit on W: lane t of a warp sums window samples 0..t < 2W
 MAX_W = 16
 
@@ -35,7 +33,6 @@ def hsync_chase(rows2: torch.Tensor, active_l: torch.Tensor,
                                  thresh=thresh, H=H)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    global LAUNCHES
     dev = rows2.device
     B, L, HP = rows2.shape
     if not (1 <= W <= MAX_W and B >= 1 and L >= 1 and HP >= 1 and H >= 1):
@@ -51,7 +48,6 @@ def hsync_chase(rows2: torch.Tensor, active_l: torch.Tensor,
     build.launch("ntsc_hsync_chase", dev, rows2.data_ptr(),
                  active_l.data_ptr(), hsync0.data_ptr(), out.data_ptr(), B,
                  L, HP, W, c0, thresh, H)
-    LAUNCHES += 1
     return out
 
 

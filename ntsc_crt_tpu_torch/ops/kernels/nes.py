@@ -46,8 +46,6 @@ import torch
 from ntsc_crt_tpu_torch.ops import fastpath
 from ntsc_crt_tpu_torch.ops.fixedpoint import cdiv, crem, sincos14
 
-# kernel launches since the last reset (read by chip_smoke.py)
-LAUNCHES = 0
 
 # amplified IRE levels (crt_nes.c:26-40) as [l][e][lum]
 _NES_T = np.array(
@@ -220,7 +218,6 @@ def nes_square(analog: torch.Tensor, ppu: torch.Tensor, table: torch.Tensor,
         return nes_square_plain(analog, ppu, table, *params, sines, **kw)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    global LAUNCHES
     dev = analog.device
     B, V, H = analog.shape
     h, w = ppu.shape[1], ppu.shape[2]
@@ -240,7 +237,6 @@ def nes_square(analog: torch.Tensor, ppu: torch.Tensor, table: torch.Tensor,
                  sines.data_ptr(), ccf.data_ptr(), B, V, H, h, w, xo, yo,
                  destw, desth, vp, black_level, int(draw_border), *box,
                  *skeleton, *burst_box, cc, vert_step, burst_level)
-    LAUNCHES += 1
     return analog, ccf
 
 

@@ -39,10 +39,6 @@ import torch
 from ntsc_crt_tpu_torch.ops import lcg
 from ntsc_crt_tpu_torch.ops.kernels import vhs
 
-# kernel launches since the last reset (read by chip_smoke.py)
-LAUNCHES = 0        # K11 inject_noise
-BC_LAUNCHES = 0     # K12 vhs_noise_bc
-
 
 def _i32(v: int) -> int:
     """A uint32 host value as the int32 bit pattern a C int takes."""
@@ -67,7 +63,6 @@ def inject_noise(analog: torch.Tensor, apow: torch.Tensor, csum: torch.Tensor,
                                   ga=ga, gc=gc)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    global LAUNCHES
     dev = analog.device
     build.check("analog", analog, torch.int8, (B, N), dev)
     for name, t in (("apow", apow), ("csum", csum)):
@@ -80,7 +75,6 @@ def inject_noise(analog: torch.Tensor, apow: torch.Tensor, csum: torch.Tensor,
                  apow.data_ptr(), csum.data_ptr(), rn.data_ptr(),
                  noise.data_ptr(), last.data_ptr(), B, N, n, shift,
                  _i32(ga), _i32(gc))
-    LAUNCHES += 1
     return out, last
 
 
@@ -125,7 +119,6 @@ def vhs_noise_bc(x: torch.Tensor, entB: torch.Tensor, a3: torch.Tensor,
         return vhs_noise_bc_plain(x, entB, a3, c3, cs, band_line, noise, H=H)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    global BC_LAUNCHES
     dev = x.device
     build.check("x", x, torch.int8, (B, N), dev)
     build.check("entB", entB, torch.int32, (B, nB), dev)
@@ -140,7 +133,6 @@ def vhs_noise_bc(x: torch.Tensor, entB: torch.Tensor, a3: torch.Tensor,
                  a3.data_ptr(), c3.data_ptr(), cs.data_ptr(),
                  band_line.data_ptr(), noise.data_ptr(), st_final.data_ptr(),
                  rn_out.data_ptr(), B, N, nB, nC, H)
-    BC_LAUNCHES += 1
     return x, st_final, rn_out
 
 

@@ -26,11 +26,6 @@ from __future__ import annotations
 
 import torch
 
-# kernel launches since the last reset (read by chip_smoke.py), one count
-# per mode
-LAUNCHES = 0              # every pixel drawn
-BLOOM_LAUNCHES = 0        # bloom: each line's drawn width from (dx, scan)
-
 
 def place_rows_uniform(rgb: torch.Tensor, old: torch.Tensor,
                        field_px: torch.Tensor, *, blend: bool,
@@ -56,7 +51,6 @@ def place_rows_uniform(rgb: torch.Tensor, old: torch.Tensor,
         return place_rows_uniform_plain(rgb, old, field_px, **kw)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    global LAUNCHES, BLOOM_LAUNCHES
     dev = rgb.device
     B, L, w, _ = rgb.shape
     build.check("rgb", rgb, torch.uint8, (B, L, w, 3), dev)
@@ -73,11 +67,7 @@ def place_rows_uniform(rgb: torch.Tensor, old: torch.Tensor,
                  bloom_dx.data_ptr() if bloom else None,
                  bloom_scan.data_ptr() if bloom else None, out.data_ptr(), B,
                  L, ratio, w * 3, fp, int(bool(blend)), scanlines,
-                 av_len if bloom else 0)
-    if bloom:
-        BLOOM_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+                 av_len if bloom else 0, mode="bloom" if bloom else None)
     return out
 
 

@@ -27,8 +27,6 @@ import torch
 
 from ntsc_crt_tpu_torch.ops.kernels.rowfilters import EQ_P, EQ_R
 
-# kernel launches since the last reset (read by chip_smoke.py)
-LAUNCHES = 0
 
 SUB, LANE = 8, 128           # one TPU probe block: 8 x 128 elements
 PATTERNS = ("peak", "eq3", "eq1")
@@ -67,7 +65,6 @@ def probe(x: torch.Tensor, pattern: str, iters: int = 4096) -> torch.Tensor:
         return probe_plain(x, pattern, iters)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    global LAUNCHES
     build.check("x", x, torch.int32, tuple(x.shape), x.device)
     if x.ndim != 4 or tuple(x.shape[1:]) != (1, SUB, LANE) or iters < 0:
         raise ValueError(f"probe: x must be (blocks, 1, {SUB}, {LANE}) and "
@@ -75,7 +72,6 @@ def probe(x: torch.Tensor, pattern: str, iters: int = 4096) -> torch.Tensor:
     out = torch.empty_like(x)
     build.launch("ntsc_probe", x.device, x.data_ptr(), out.data_ptr(),
                  x.numel(), PATTERNS.index(pattern), iters, THREADS)
-    LAUNCHES += 1
     return out
 
 

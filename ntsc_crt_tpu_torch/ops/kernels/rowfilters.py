@@ -22,10 +22,6 @@ from ntsc_crt_tpu_torch.ops.fixedpoint import EXP_P, i32
 EQ_P = 16  # crt_core.c:155
 EQ_R = 1 << (EQ_P - 1)
 
-# kernel launches since the last reset (read by chip_smoke.py)
-IIR_LAUNCHES = 0
-EQ_LAUNCHES = 0
-
 
 def _check_rows(name, x, coefs, dev):
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
@@ -42,12 +38,10 @@ def iir_lowpass_rows(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """x int32 (R, T), c int32 (R,) -> int32 (R, T): each row low-passed."""
     if x.device.type == "cpu":
         return iir_lowpass_rows_plain(x, c)
-    global IIR_LAUNCHES
     build, R, T = _check_rows("iir_lowpass_rows", x, dict(c=c), x.device)
     y = torch.empty_like(x)
     build.launch("ntsc_iir_lowpass_rows", x.device, x.data_ptr(), c.data_ptr(),
                  y.data_ptr(), R, T)
-    IIR_LAUNCHES += 1
     return y
 
 
@@ -58,13 +52,11 @@ def eq_threeband_rows(x: torch.Tensor, lf: torch.Tensor, hf: torch.Tensor,
     -> int32 (R, T): each row through the 3-band EQ."""
     if x.device.type == "cpu":
         return eq_threeband_rows_plain(x, lf, hf, g0, g1, g2)
-    global EQ_LAUNCHES
     coefs = dict(lf=lf, hf=hf, g0=g0, g1=g1, g2=g2)
     build, R, T = _check_rows("eq_threeband_rows", x, coefs, x.device)
     y = torch.empty_like(x)
     build.launch("ntsc_eq_threeband_rows", x.device, x.data_ptr(),
                  *(c.data_ptr() for c in coefs.values()), y.data_ptr(), R, T)
-    EQ_LAUNCHES += 1
     return y
 
 

@@ -26,9 +26,6 @@ import torch
 from ntsc_crt_tpu_torch.ops import fastpath, filters
 from ntsc_crt_tpu_torch.parallel import spatial
 
-# kernel launches since the last reset (read by chip_smoke.py)
-LAUNCHES = 0
-
 
 def scanconv_rows(oy: torch.Tensor, oi: torch.Tensor, oq: torch.Tensor,
                   contrast: torch.Tensor, *, outw: int) -> torch.Tensor:
@@ -38,7 +35,6 @@ def scanconv_rows(oy: torch.Tensor, oi: torch.Tensor, oq: torch.Tensor,
         return scanconv_rows_plain(oy, oi, oq, contrast, outw=outw)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    global LAUNCHES
     dev = oy.device
     R, T = oy.shape
     for name, t in (("oy", oy), ("oi", oi), ("oq", oq)):
@@ -51,7 +47,6 @@ def scanconv_rows(oy: torch.Tensor, oi: torch.Tensor, oq: torch.Tensor,
     build.launch("ntsc_scanconv_rows", dev, oy.data_ptr(), oi.data_ptr(),
                  oq.data_ptr(), contrast.data_ptr(), out.data_ptr(), R, T,
                  outw)
-    LAUNCHES += 1
     return out
 
 

@@ -20,8 +20,6 @@ import torch
 
 from ntsc_crt_tpu_torch.ops import lcg
 
-# kernel launches since the last reset (read by chip_smoke.py)
-LAUNCHES = 0
 
 A2 = (lcg.RAND_A * lcg.RAND_A) & lcg.MASK32             # two calls composed
 C2 = (lcg.RAND_A * lcg.RAND_B + lcg.RAND_B) & lcg.MASK32
@@ -45,7 +43,6 @@ def vhs_region_b_entries(st0: torch.Tensor, *, n_steps: int,
         return vhs_region_b_entries_plain(st0, n_steps=n_steps, H=H)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    global LAUNCHES
     dev = st0.device
     B = st0.shape[0]
     build.check("st0", st0, torch.int32, (B,), dev)
@@ -56,7 +53,6 @@ def vhs_region_b_entries(st0: torch.Tensor, *, n_steps: int,
     out = torch.empty((B, n_steps), dtype=torch.int32, device=dev)
     build.launch("ntsc_vhs_region_b_entries", dev, st0.data_ptr(),
                  out.data_ptr(), B, n_steps, H)
-    LAUNCHES += 1
     return out
 
 

@@ -1,8 +1,11 @@
-"""Stage timers, CUDA-event kernel timing and torch.profiler traces.
+"""Stage spans, stage timers, CUDA-event kernel timing and torch.profiler
+traces.
 
 Counterpart of ``ntsc_crt_tpu/utils/profiling.py``.  The reference has no
 profiling at all (crt_main.c:238 prints progress).  Here:
 
+* ``span`` — a named range around a stage of the step, recorded only while
+  a profiler runs (``ntsc.<name>``, nested as the calls nest);
 * ``time_fn`` / ``profile_stages`` — host-clock seconds per call, the
   clock read after the device has finished (``torch.cuda.synchronize``);
 * ``cuda_ms`` — a kernel's time between two CUDA events, as the host issues
@@ -31,6 +34,21 @@ import torch
 DEFAULT_LOGDIR = os.path.join(tempfile.gettempdir(), "ntsc_trace")
 # the categories of a Chrome trace's device events
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records `name` as the profiler range "ntsc.<name>"
+    while a torch.profiler runs, and does nothing otherwise: entering a
+    range costs host time even with no profiler running, the check a small
+    part of it.  The range keeps no clock of its own.  It lies on
+    the trace's timeline beside the device operations launched inside it,
+    each tied to it by its launch's correlation id; its parent is the range
+    it nests in (the event's ``cpu_parent``); it is written out with the
+    trace (``trace``)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function("ntsc." + name)
+    return _NO_SPAN
 
 
 def _sync(out) -> None:

@@ -26,7 +26,7 @@ import torch
 from ntsc_crt_tpu_torch.models import demodulate as dem
 from ntsc_crt_tpu_torch.models import pipeline, systems
 from ntsc_crt_tpu_torch.models.demodulate import MonitorParams
-from ntsc_crt_tpu_torch.ops.kernels import place
+from ntsc_crt_tpu_torch.ops.kernels import build, place
 
 torch.set_num_threads(1)  # the tier runs several workers on few cores
 
@@ -251,9 +251,9 @@ def test_k6_bloom_kernel_matches_plain(cuda, ratio, w, blend):
             kw = dict(blend=bool(blend), scanlines=scanlines, ratio=ratio,
                       fp=ratio // 2)
             want = k6(x, **kw)
-            n = place.BLOOM_LAUNCHES
+            n = build.LAUNCHES["place_rows_uniform_bloom"]
             same(k6(x, cuda, **kw), want, f"parity {parity} {scanlines}")
-            assert place.BLOOM_LAUNCHES == n + 1
+            assert build.LAUNCHES["place_rows_uniform_bloom"] == n + 1
 
 
 @pytest.mark.gpu
@@ -268,9 +268,9 @@ def test_bloom_step_on_the_card_matches_the_cpu(cuda):
         st = pipeline.init_batch(NTSC, 3, 640, 480, device=dev)
         args = [torch.as_tensor(v, device=dev) for v in (imgs, f, f, f)]
         st = pipeline.step_batch(NTSC, st, *args, noise=12, do_bloom=True)
-        n = place.BLOOM_LAUNCHES
+        n = build.LAUNCHES["place_rows_uniform_bloom"]
         outs.append(pipeline.step_batch(NTSC, st, *args, noise=12,
                                         do_bloom=True))
-        assert place.BLOOM_LAUNCHES == n + (dev != "cpu")
+        assert build.LAUNCHES["place_rows_uniform_bloom"] == n + (dev != "cpu")
     for k, v in outs[0]._asdict().items():
         same(getattr(outs[1], k), v, k)

@@ -23,8 +23,9 @@ import torch
 from ntsc_crt_tpu_torch.models import demodulate as dem
 from ntsc_crt_tpu_torch.models import systems
 from ntsc_crt_tpu_torch.ops import filters
-from ntsc_crt_tpu_torch.ops.kernels import (ccf, decode, encode, hsync,
-                                            probe, rowfilters, scanconv, vhs)
+from ntsc_crt_tpu_torch.ops.kernels import (build, ccf, decode, encode,
+                                            hsync, probe, rowfilters,
+                                            scanconv, vhs)
 
 torch.set_num_threads(1)  # the tier runs several workers on few cores
 
@@ -132,9 +133,9 @@ def test_k1_kernel_matches_plain(cuda, cc, per_row, shape):
                   per_row=per_row)
     kw = dict(coefs=coefs, xo_mod=2, destw=destw)
     want = encode.encode_rows(**to_torch(x), **kw)
-    n = encode.LAUNCHES
+    n = build.LAUNCHES["encode_rows"]
     same(encode.encode_rows(**to_torch(x, cuda), **kw), want)
-    assert encode.LAUNCHES == n + 1
+    assert build.LAUNCHES["encode_rows"] == n + 1
 
 
 # --- K2 decode_rows (three-band) ---------------------------------------------
@@ -211,11 +212,11 @@ def test_k2_kernel_matches_plain(cuda, cc, mode, shape):
              dem._eq_coefs(NTSC))
     kw = dict(row0=3, coefs=coefs, av_len=av_len, outw=outw)
     want = decode.decode_rows_plain_any_shift(**to_torch(x), **kw)
-    counter = {"bloom": "BLOOM_LAUNCHES"}.get(
-        mode, "CONV_LAUNCHES" if mode.startswith("conv") else "LAUNCHES")
-    n = getattr(decode, counter)
+    counter = {"bloom": "decode_rows_bloom"}.get(
+        mode, "decode_rows_conv" if mode.startswith("conv") else "decode_rows")
+    n = build.LAUNCHES[counter]
     same(decode.decode_rows(**to_torch(x, cuda), **kw), want)
-    assert getattr(decode, counter) == n + 1
+    assert build.LAUNCHES[counter] == n + 1
 
 
 @pytest.mark.parametrize("mode", ["threeband", "conv7", "bloom"])
@@ -350,10 +351,10 @@ def test_k3_kernel_path_refuses_w_past_its_limit(W):
     """Lane t of the kernel's warp holds window sample t < 2W <= 32."""
     x = {n: torch.as_tensor(v).to("meta") for n, v in
          k3_inputs(0, B=1).items()}
-    n = hsync.LAUNCHES
+    n = build.LAUNCHES["hsync_chase"]
     with pytest.raises(ValueError, match="needs 1 <= W"):
         hsync.hsync_chase(**x, **dict(K3, W=W))
-    assert hsync.LAUNCHES == n
+    assert build.LAUNCHES["hsync_chase"] == n
 
 
 @pytest.mark.gpu
@@ -376,9 +377,9 @@ def test_k3_kernel_matches_plain(cuda, case, B):
     else:
         x, k = k3_edge_inputs(B, B, case)
     want = hsync.hsync_chase(**to_torch(x), **k)
-    n = hsync.LAUNCHES
+    n = build.LAUNCHES["hsync_chase"]
     same(hsync.hsync_chase(**to_torch(x, cuda), **k), want)
-    assert hsync.LAUNCHES == n + 1
+    assert build.LAUNCHES["hsync_chase"] == n + 1
 
 
 # --- K4 ccf_ema --------------------------------------------------------------
@@ -426,9 +427,9 @@ def test_k4_kernel_matches_plain(cuda, case, B):
     L, m, CC, VP = K4_CASES[case]
     x = k4_inputs(B, B, L, m, CC, VP, 1 << 30)
     want = ccf.ccf_ema(**to_torch(x))
-    n = ccf.LAUNCHES
+    n = build.LAUNCHES["ccf_ema"]
     got = ccf.ccf_ema(**to_torch(x, cuda))
-    assert ccf.LAUNCHES == n + 1
+    assert build.LAUNCHES["ccf_ema"] == n + 1
     same(got[0], want[0])
     same(got[1], want[1])
 
@@ -511,9 +512,9 @@ def test_k5_kernel_matches_plain(cuda, case, B):
     st0 = torch.as_tensor(k5_seeds(B + 1, B).view(np.int32))
     kw = dict(n_steps=n_steps, H=H)
     want = vhs.vhs_region_b_entries(st0, **kw)
-    n = vhs.LAUNCHES
+    n = build.LAUNCHES["vhs_region_b_entries"]
     same(vhs.vhs_region_b_entries(st0.to(cuda), **kw), want)
-    assert vhs.LAUNCHES == n + 1
+    assert build.LAUNCHES["vhs_region_b_entries"] == n + 1
 
 
 # --- K7 / K8 row filters, K9 scan conversion, the unfused chain, K10 ----------
@@ -547,13 +548,14 @@ def test_k7_k8_kernels_match_plain(cuda, R, T, lim):
     edges (ROW_EDGES)."""
     x, c, cs = row_inputs(R + T, R, T, lim)
     t = lambda v, d="cpu": torch.as_tensor(v, device=d)  # noqa: E731
-    n7, n8 = rowfilters.IIR_LAUNCHES, rowfilters.EQ_LAUNCHES
+    n7, n8 = (build.LAUNCHES["iir_lowpass_rows"],
+              build.LAUNCHES["eq_threeband_rows"])
     same(rowfilters.iir_lowpass_rows(t(x, cuda), t(c, cuda)),
          rowfilters.iir_lowpass_rows(t(x), t(c)))
     same(rowfilters.eq_threeband_rows(t(x, cuda), *(t(v, cuda) for v in cs)),
          rowfilters.eq_threeband_rows(t(x), *map(t, cs)))
-    assert (rowfilters.IIR_LAUNCHES, rowfilters.EQ_LAUNCHES) == (n7 + 1,
-                                                                 n8 + 1)
+    assert (build.LAUNCHES["iir_lowpass_rows"],
+            build.LAUNCHES["eq_threeband_rows"]) == (n7 + 1, n8 + 1)
 
 
 @pytest.mark.gpu
@@ -564,7 +566,6 @@ def test_k7_k8_kernels_off_the_line_grid(cuda, R, T, ox, oy):
     tiles follow y's lines, and x off y's line grid takes the 4-byte copies
     (the wrappers allocate y themselves, so the entry points are called
     directly)."""
-    from ntsc_crt_tpu_torch.ops.kernels import build
     x, c, cs = row_inputs(R * T + ox + oy, R, T, 1 << 31)
 
     def at(off):
@@ -595,10 +596,10 @@ def test_k9_kernel_matches_plain(cuda, R, T, outw, lim):
     x = [rng.integers(-lim, lim, (R, T)).astype(np.int32) for _ in range(3)]
     x.append(rng.integers(0, 400, R).astype(np.int32))
     want = scanconv.scanconv_rows(*map(torch.as_tensor, x), outw=outw)
-    n = scanconv.LAUNCHES
+    n = build.LAUNCHES["scanconv_rows"]
     same(scanconv.scanconv_rows(*(torch.as_tensor(v, device=cuda) for v in x),
                                 outw=outw), want)
-    assert scanconv.LAUNCHES == n + 1
+    assert build.LAUNCHES["scanconv_rows"] == n + 1
 
 
 @pytest.mark.gpu
@@ -609,9 +610,10 @@ def test_unfused_chain_kernels_equal_k2_kernel(cuda, cc):
                            row0=3), cuda)
     kw = dict(row0=3, coefs=dem._eq_coefs(NTSC), av_len=NTSC.av_len,
               outw=640)
-    n = (rowfilters.EQ_LAUNCHES, scanconv.LAUNCHES)
+    n = (build.LAUNCHES["eq_threeband_rows"], build.LAUNCHES["scanconv_rows"])
     same(scanconv.decode_rows_unfused(**x, **kw), decode.decode_rows(**x, **kw))
-    assert (rowfilters.EQ_LAUNCHES, scanconv.LAUNCHES) == (n[0] + 1, n[1] + 1)
+    assert (build.LAUNCHES["eq_threeband_rows"],
+            build.LAUNCHES["scanconv_rows"]) == (n[0] + 1, n[1] + 1)
 
 
 @pytest.mark.gpu
@@ -620,9 +622,9 @@ def test_unfused_chain_kernels_equal_k2_kernel(cuda, cc):
 def test_k10_kernel_matches_plain(cuda, pattern, iters):
     x = probe.probe_input(3, "cpu")
     want = probe.probe(x, pattern, iters=iters)
-    n = probe.LAUNCHES
+    n = build.LAUNCHES["probe"]
     same(probe.probe(x.to(cuda), pattern, iters=iters), want)
-    assert probe.LAUNCHES == n + 1
+    assert build.LAUNCHES["probe"] == n + 1
 
 
 # --- dispatch -----------------------------------------------------------------
@@ -691,22 +693,9 @@ def test_non_cpu_tensors_never_take_the_plain_version(name):
                                                row_inputs(0, 4, 8, 9))),
          "scanconv_rows": lambda: dict(zip("xc", row_inputs(0, 4, 8, 9))),
          "probe": lambda: dict(x=probe.probe_input(1, "cpu"))}[name]()
-    counter = {"encode_rows": (encode, "LAUNCHES"),
-               "decode_rows": (decode, "LAUNCHES"),
-               "hsync_chase": (hsync, "LAUNCHES"),
-               "ccf_ema": (ccf, "LAUNCHES"),
-               "vhs_region_b_entries": (vhs, "LAUNCHES"),
-               "decode_rows_conv": (decode, "CONV_LAUNCHES"),
-               "decode_rows_bloom": (decode, "BLOOM_LAUNCHES"),
-               "bloom_line_width": (decode, "LINE_WIDTH_LAUNCHES"),
-               "place_rows_uniform": (place, "LAUNCHES"),
-               "iir_lowpass_rows": (rowfilters, "IIR_LAUNCHES"),
-               "eq_threeband_rows": (rowfilters, "EQ_LAUNCHES"),
-               "scanconv_rows": (scanconv, "LAUNCHES"),
-               "probe": (probe, "LAUNCHES")}[name]
-    n = getattr(*counter)
+    n = build.LAUNCHES[name]
     meta = lambda v: torch.as_tensor(v).to("meta")  # noqa: E731
     with pytest.raises(ValueError, match="expected a tensor on"):
         call({k: [meta(c) for c in v] if k == "cs" else meta(v)
               for k, v in x.items()})
-    assert getattr(*counter) == n
+    assert build.LAUNCHES[name] == n

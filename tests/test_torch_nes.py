@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from ntsc_crt_tpu_torch.models import modulate, systems
-from ntsc_crt_tpu_torch.ops.kernels import nes
+from ntsc_crt_tpu_torch.ops.kernels import build, nes
 
 torch.set_num_threads(1)  # the tier runs several workers on few cores
 
@@ -204,9 +204,9 @@ def test_nes_square_kernel_matches_plain(cuda, name, B):
     offset."""
     analog, ppu, kw = case_inputs(name, B, seed=B + 100)
     want = port_modulate(analog, ppu, kw, "cpu")
-    launches = nes.LAUNCHES
+    launches = build.LAUNCHES["nes_square"]
     got = port_modulate(analog, ppu, kw, cuda)
-    assert nes.LAUNCHES == launches + 1
+    assert build.LAUNCHES["nes_square"] == launches + 1
     for tag, g, w in zip(("analog", "ccf"), got, want):
         same(g, w.numpy(), f"{name} {tag}")
 

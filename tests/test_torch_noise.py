@@ -28,7 +28,7 @@ import torch
 from ntsc_crt_tpu_torch.models import demodulate as dem
 from ntsc_crt_tpu_torch.models import systems
 from ntsc_crt_tpu_torch.ops import lcg
-from ntsc_crt_tpu_torch.ops.kernels import noise, vhs
+from ntsc_crt_tpu_torch.ops.kernels import build, noise, vhs
 
 torch.set_num_threads(1)  # the tier runs several workers on few cores
 
@@ -201,9 +201,9 @@ def test_inject_noise_kernel_matches_plain(cuda, case, B, off):
         torch.as_tensor(rn, device=d), torch.as_tensor(nz, device=d))
     kw = dict(shift=shift, ga=ga, gc=gc)
     want = noise.inject_noise(*args("cpu"), **kw)
-    launches = noise.LAUNCHES
+    launches = build.LAUNCHES["inject_noise"]
     got = noise.inject_noise(*args(cuda), **kw)
-    assert noise.LAUNCHES == launches + 1
+    assert build.LAUNCHES["inject_noise"] == launches + 1
     for g, w in zip(got, want):
         same(g, w, case)
 
@@ -235,8 +235,8 @@ def test_vhs_noise_bc_kernel_matches_plain(cuda, H, N, B):
                                                  c3.view(np.int32), cs,
                                                  band, nz)))
     want = noise.vhs_noise_bc(*args("cpu"), H=H)
-    launches = noise.BC_LAUNCHES
+    launches = build.LAUNCHES["vhs_noise_bc"]
     got = noise.vhs_noise_bc(*args(cuda), H=H)
-    assert noise.BC_LAUNCHES == launches + 1
+    assert build.LAUNCHES["vhs_noise_bc"] == launches + 1
     for tag, g, w in zip(("x", "st_final", "rn"), got, want):
         same(g, w, tag)

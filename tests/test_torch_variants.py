@@ -28,7 +28,7 @@ from ntsc_crt_tpu_torch.models import demodulate as dem
 from ntsc_crt_tpu_torch.models import pipeline, systems
 from ntsc_crt_tpu_torch.models.demodulate import MonitorParams
 from ntsc_crt_tpu_torch.ops import filters
-from ntsc_crt_tpu_torch.ops.kernels import decode, place
+from ntsc_crt_tpu_torch.ops.kernels import build, decode, place
 
 torch.set_num_threads(1)  # the tier runs several workers on few cores
 
@@ -218,10 +218,10 @@ def test_k2_mode_kernel_matches_plain(cuda, mode):
              dem._eq_coefs(NTSC))
     kw = dict(row0=3, coefs=coefs, av_len=av_len, outw=outw)
     want = decode.decode_rows(**t(x), **kw)
-    counter = ("BLOOM_LAUNCHES" if bloom else "CONV_LAUNCHES")
-    n = getattr(decode, counter)
+    counter = ("decode_rows_bloom" if bloom else "decode_rows_conv")
+    n = build.LAUNCHES[counter]
     same(decode.decode_rows(**t(x, cuda), **kw), want)
-    assert getattr(decode, counter) == n + 1
+    assert build.LAUNCHES[counter] == n + 1
 
 
 @pytest.mark.gpu
@@ -335,9 +335,9 @@ def test_bloom_line_width_kernel_matches_plain(cuda, kind, shape, B):
                              if shape == "ntsc" else (300, 61, 50, 1, 0))
     x = bloom_inputs(B, B, L, H, AV, kind, row0, extra)
     want = decode.bloom_line_width(**t(x), row0=row0, av_len=AV)
-    n = decode.LINE_WIDTH_LAUNCHES
+    n = build.LAUNCHES["bloom_line_width"]
     same(decode.bloom_line_width(**t(x, cuda), row0=row0, av_len=AV), want)
-    assert decode.LINE_WIDTH_LAUNCHES == n + 1
+    assert build.LAUNCHES["bloom_line_width"] == n + 1
 
 
 # --- K6 place_rows_uniform ----------------------------------------------------
@@ -437,9 +437,9 @@ def test_k6_kernel_matches_plain(cuda, ratio, w, blend):
                   fp=ratio // 2)
         want = place.place_rows_uniform(*map(torch.as_tensor,
                                              (rgb, old, field_px)), **kw)
-        n = place.LAUNCHES
+        n = build.LAUNCHES["place_rows_uniform"]
         got = place.place_rows_uniform(
             *(torch.as_tensor(a, device=cuda) for a in (rgb, old, field_px)),
             **kw)
         same(got, want, f"scanlines {scanlines}")
-        assert place.LAUNCHES == n + 1
+        assert build.LAUNCHES["place_rows_uniform"] == n + 1
