@@ -31,7 +31,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    paths' and on NES's noise inputs;
    K7 on the Y/I/Q rows of the NTSC and PV1K K1 inputs; K8 on the NTSC K2
    inputs' Y/I/Q rows, K9 on K8's output, and the unfused chain against K2;
-   K3 and K4 also at batch 512 on NTSC's and PV1K's inputs, K5 and K12 on
+   K2 (each mode), K3 and bloom_line_width read their lines in place from
+   the noisy field, a line on the field's last row continuing on its row
+   0: each reports the share of its lines that start on the last row (the
+   wrap), which must be above 0 on every NTSC path's inputs;
+   K2 (each mode), K3 and K4 also at batch 512 on NTSC's (K3, K4: and
+   PV1K's) inputs, K5 and K12 on
    NTSCVHS's, K13 on NES's, K11 on every main path's, bloom_line_width (its
    line sums included) and K6's bloom mode on the bloom path's, K7 on
    NTSC's and PV1K's rows
@@ -89,9 +94,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    step timed stage by stage (host clock around synchronized stages) and
    one step under torch.profiler (device launches and busy time, and each
    of the port's kernels' device time and launches in that step); at batch
-   512 also the line scan's device operations (the rolled4 row select, the
-   rows2 concatenation, the burst gather, K3, K4), each with its device
-   time.
+   512 also the line scan's device operations (the burst gather, K3, K4,
+   the waves), each with its device time.
 7. variants — one batch-2 step each of fixed sync (do_vsync and do_hsync
    False: K3 must not launch), NTSC_RAINBOW, SNES, TEMPLATE, NESRGB and
    NES with draw_border (border_color 0x1FF) and optimized=False, held to
@@ -146,6 +150,7 @@ The line before the last is the kernel table as JSON; the last line is
 """
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -305,15 +310,22 @@ def work_decode(a, k, out):
     conv = k["coefs"][0] == "conv"
     chain = lambda n: (k["coefs"][1] + 15 if conv  # noqa: E731
                        else 5 * n + 25) * dep()
+    moved = line_rows_bytes(a[0], L) + nbytes(*a[1:], out)
     if k.get("bloom_dx") is None:
-        return (nbytes(*a, out), B * L * (av * per_sample + outw * 44),
-                chain(av))
-    n_eq = decode.eq_len(av, a[2].shape[2])
+        return (moved, B * L * (av * per_sample + outw * 44), chain(av))
+    n_eq = decode.eq_len(av, a[3].shape[2])
     last = ((k["bloom_dx"].long() * (outw - 1)) >> 12).clamp(min=0)
     march = (last + 1).clamp(max=n_eq - 1) + 1
-    return (nbytes(*a, out, k["bloom_dx"], k["bloom_lidx"]),
+    return (moved + nbytes(k["bloom_dx"], k["bloom_lidx"]),
             int(march.sum()) * (per_sample + 6) + B * L * outw * 54,
             chain(int(march.max())))
+
+
+def line_rows_bytes(field, L) -> int:
+    """The field bytes L consecutive lines read: their L + 1 rows (a line
+    runs on into the next row), each once, at most every row."""
+    B, V, H = field.shape
+    return B * min(L + 1, V) * H
 
 
 def line_window_bytes(H, xpos, av):
@@ -339,12 +351,12 @@ def work_line_width(a, k, out):
     truncating /128 as three, the add).  Chain: the EMA's 5 a line, after
     the L / 16 lines its warp sums one after another (csrc/bloom.cu's 16
     warps a frame), each a load's latency."""
-    rows, xpos, max_e = a
+    field, line_row, xpos, max_e = a
     B, L = xpos.shape
-    win = line_window_bytes(rows.shape[2], xpos, k["av_len"])
+    win = line_window_bytes(field.shape[2], xpos, k["av_len"])
     ops = (win // 4) * 2 + B * L * 40
     chain = L * 5 * dep() + -(-L // 16) * LOAD_CYCLES
-    return win + nbytes(xpos, max_e, out), ops, chain
+    return win + nbytes(line_row, xpos, max_e, out), ops, chain
 
 
 def work_place(a, k, out):
@@ -395,8 +407,11 @@ def work_hsync(a, k, out):
     funnel, two dp4a and their sum, the compare, the warp min, the move 2,
     the wrap 2, the flag), the load off it; a shuffle and the warp min take
     longer than the probe's dependent op."""
-    rows2, active, h0 = a
-    HP = rows2.shape[2]
+    from ntsc_crt_tpu_torch.ops import fastpath
+    field, line_row, active, h0 = a
+    HP = field.shape[2] + k["pad"]
+    rows2 = fastpath.line_samples(field, line_row,
+                                  torch.arange(HP, device=field.device))
     tW = 2 * k["W"]
     prev = torch.cat([h0[:, None], out[:, :-1]], dim=1)   # estimate before
     x = (prev + k["c0"]).long()[..., None] + torch.arange(tW,
@@ -407,7 +422,7 @@ def work_hsync(a, k, out):
     probes = torch.where(hit.any(2), hit.to(torch.int32).argmax(2) + 1, tW)
     probed = int(torch.where(active, probes, 0).sum())
     chain = int(active.sum(1).max()) * 15 * dep()
-    return (probed + nbytes(active, h0, out),
+    return (probed + nbytes(line_row, active, h0, out),
             probed * 2 + probes.numel() * 6, chain)
 
 
@@ -665,12 +680,10 @@ def k8_args(a, k):
     """K8's rows from K2's arguments: every line's Y/I/Q EQ input,
     (B * L * 3, av_len), each row with its channel's coefficients."""
     from ntsc_crt_tpu_torch.ops.kernels import scanconv
-    rows, shifts, waveI, waveQ, bright = a[:5]
-    stacked = scanconv.demod_rows(rows, shifts, waveI, waveQ, bright,
-                                  row0=k["row0"], av_len=k["av_len"])
+    stacked = scanconv.demod_rows(*a[:6], av_len=k["av_len"])
     R = stacked.shape[0] * stacked.shape[1]
     cs = [torch.tensor([c[j] for c in k["coefs"]], dtype=torch.int32,
-                       device=rows.device).repeat(R) for j in range(5)]
+                       device=a[0].device).repeat(R) for j in range(5)]
     return (stacked.reshape(-1, k["av_len"]).contiguous(), *cs), {}
 
 
@@ -703,13 +716,26 @@ def k9_args(eqd, a, k):
     av = k["av_len"]
     e = eqd.reshape(-1, 3, av)
     return ((e[:, 0] << 4).contiguous(), (e[:, 1] >> 3).contiguous(),
-            (e[:, 2] >> 3).contiguous(), a[5].reshape(-1).contiguous()), \
+            (e[:, 2] >> 3).contiguous(), a[6].reshape(-1).contiguous()), \
         dict(outw=k["outw"])
+
+
+def wrap_share(name, a, k):
+    """For K2 (each mode), K3 and bloom_line_width, which read each line in
+    place from the field (a, k: their arguments): the share of the lines
+    that start on the field's last row and so continue on its row 0 (the
+    wrap); None for the other kernels."""
+    if not (name.startswith("decode_rows")
+            or name in ("hsync_chase", "bloom_line_width")):
+        return None
+    field, line_row = a[0], a[1]
+    return float((line_row == field.shape[1] - 1).double().mean())
 
 
 def check_kernel(name, label, B, a, k, rows):
     """The kernel against its plain version on the same inputs at 0 LSB,
-    both timed; records and prints the row; returns the kernel's result."""
+    both timed; records and prints the row (with wrap_share's share of
+    wrapping lines); returns the kernel's result."""
     kd = kernel_modules()[name]
     kern = getattr(kd.mod, kd.wrapper)
     got, want = kern(*kd.fresh(a), **k), kd.plain(*kd.fresh(a), **k)
@@ -734,6 +760,9 @@ def check_kernel(name, label, B, a, k, rows):
         buf = torch.empty_like(a[0])
         copy_ms = cuda_ms(lambda: buf.copy_(a[0]), 20, spin=True)
         chain += f", copy floor {copy_ms:.4f} ms"
+    share = wrap_share(name, a, k)
+    if share is not None:
+        chain += f", wrapping lines {share:.6f}"
     print(f"kernel {name} batch {B} ({label}) shapes "
           f"{[tuple(g.shape) for g in got_t]}: {ms:.4f} ms (behind a spin "
           f"{spin_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
@@ -741,8 +770,18 @@ def check_kernel(name, label, B, a, k, rows):
           flush=True)
     rows.setdefault(name, {})[(label, B)] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by)
+        bound_by=bound_by, **({} if share is None else
+                              dict(wrap_share=share)))
     return got
+
+
+def gate_wrap(name, label, B, a, k) -> None:
+    """Fails the run unless some line of these in-place readers' inputs
+    wraps: the parity gate must exercise the wrap."""
+    share = wrap_share(name, a, k)
+    if share is not None and share <= 0:
+        raise SystemExit(f"{name} {label} batch {B}: no line starts on the "
+                         "field's last row, so the wrap went untested")
 
 
 def phase_kernels(pipeline, systems, dev):
@@ -771,6 +810,9 @@ def phase_kernels(pipeline, systems, dev):
             seen = capture_kernel_inputs(pipeline, cfg, B, names, dev, kw)
             got = {n: check_kernel(n, label, B, *seen[n], rows)
                    for n in names}
+            if cfg is systems.NTSC:
+                for n in names:
+                    gate_wrap(n, label, B, *seen[n])
             if "encode_rows" in names and cfg.do_bandlimiting:
                 check_kernel("iir_lowpass_rows", label, B,
                              *k7_rows(*seen["encode_rows"]), rows)
@@ -795,17 +837,21 @@ def phase_kernels(pipeline, systems, dev):
 
 
 def phase_scan_kernels(pipeline, systems, dev, batches, rows):
-    """K3 and K4 on the inputs NTSC's and PV1K's line scans hand them, K5 on
-    NTSCVHS's noise inputs, bloom_line_width on the bloom path's, K7 on the
-    Y/I/Q rows of NTSC's and PV1K's K1 inputs and K8 on NTSC's K2 inputs'
-    (DERIVED), K11 on every main path's noise inputs, K12 on NTSCVHS's and
-    K13 on NES's, each against its plain version at each batch of
-    `batches`, timed and bounded as in phase_kernels."""
-    groups = ((systems.NTSC, ("hsync_chase", "ccf_ema", "inject_noise"), {}),
+    """K2 in each mode on the inputs NTSC's decodes hand it (3-band, conv7,
+    bloom), K3 and K4 on the inputs NTSC's and PV1K's line scans hand them,
+    K5 on NTSCVHS's noise inputs, bloom_line_width on the bloom path's, K7
+    on the Y/I/Q rows of NTSC's and PV1K's K1 inputs and K8 on NTSC's K2
+    inputs' (DERIVED), K11 on every main path's noise inputs, K12 on
+    NTSCVHS's and K13 on NES's, each against its plain version at each
+    batch of `batches`, timed and bounded as in phase_kernels (the NTSC
+    paths' in-place readers gated on their wrapping lines, gate_wrap)."""
+    groups = ((systems.NTSC, ("decode_rows", "hsync_chase", "ccf_ema",
+                              "inject_noise"), {}),
+              (systems.NTSC, ("decode_rows_conv",), CONV7),
               (systems.PV1K, ("hsync_chase", "ccf_ema", "inject_noise"), {}),
               (systems.NTSCVHS, ("vhs_region_b_entries", "inject_noise",
                                  "vhs_noise_bc"), VHS_KW),
-              (systems.NTSC, ("bloom_line_width",
+              (systems.NTSC, ("decode_rows_bloom", "bloom_line_width",
                               "place_rows_uniform_bloom", "inject_noise"),
                BLOOM),
               (systems.NTSC, ("inject_noise",), CONV7),
@@ -817,16 +863,20 @@ def phase_scan_kernels(pipeline, systems, dev, batches, rows):
             seen = kernel_inputs(pipeline, cfg, B, names, dev, kw)
             for n in names:
                 check_kernel(n, path_label(cfg, kw), B, *seen[n], rows)
+                if cfg is systems.NTSC:
+                    gate_wrap(n, path_label(cfg, kw), B, *seen[n])
 
 
-# (L, HP, H, W, c0, far) of K3 inputs whose estimate walks across H both
-# ways: windows inside the rows, from below 0, past HP, W at the kernel's
-# limit, and its one-lane path: estimates from outside [0, H) (hsync0 up to
-# `far` lines of H off), W >= H (tests/test_torch_kernels.py K3_EDGES)
-K3_EDGES = ((60, 128, 40, 8, 0, 0), (60, 128, 40, 6, 0, 0),
-            (40, 128, 104, 8, 9, 0), (50, 48, 40, 8, -16, 0),
-            (70, 30, 60, 6, -3, 0), (33, 200, 150, 16, 5, 0),
-            (50, 64, 40, 8, 0, 3), (40, 64, 10, 12, 0, 0))
+# (L, pad, H, W, c0, far) of K3 inputs whose estimate walks across H both
+# ways: windows inside the lines' H + pad samples, from below 0, past
+# them, W at the kernel's limit, and its one-lane path: estimates from
+# outside [0, H) (hsync0 up to `far` lines of H off), W >= H
+# (tests/test_torch_kernels.py K3_EDGES); each on a field of L + 8 rows,
+# line l on row l and on rows that pass the last row to row 0
+K3_EDGES = ((60, 88, 40, 8, 0, 0), (60, 88, 40, 6, 0, 0),
+            (40, 24, 104, 8, 9, 0), (50, 8, 40, 8, -16, 0),
+            (70, 0, 60, 6, -3, 0), (33, 50, 150, 16, 5, 0),
+            (50, 24, 40, 8, 0, 3), (40, 54, 10, 12, 0, 0))
 # (L, m, CC, VP) of K4 inputs: the kernel's limits over ragged chunks, SNES's
 # rows, one line
 K4_EDGES = ((37, 16, 5, 5), (240, 10, 4, 3), (1, 3, 2, 2))
@@ -835,11 +885,12 @@ K4_EDGES = ((37, 16, 5, 5), (240, 10, 4, 3), (1, 3, 2, 2))
 # tests/test_torch_kernels.py)
 K5_EDGES = ((1, 19), (7, 19 * 7 - 5), (7, 19 * 7 + 9), (40, 19 * 40),
             (40, 19 * 40 - 5), (40, 19 * 40 + 9), (910, 19 * 910 - 5))
-# (L, H, av, row0, extra rows) of bloom_line_width inputs: NTSC's rolled4,
-# odd rows whose 16-byte chunks straddle rows and the tensor's end with L
-# past the kernel's 256-line pass, windows wider than a row, one-byte rows
-LINE_EDGES = ((240, 910, 753, 3, 3), (300, 61, 50, 1, 0), (7, 13, 30, 0, 0),
-              (9, 1, 3, 0, 0))
+# (L, H, av, V) of bloom_line_width inputs: NTSC's field, odd rows whose
+# 16-byte chunks straddle rows and the tensor's end with L past the
+# kernel's 256-line pass, windows wider than a row, one-byte rows; each
+# with line l on row l and on rows that pass the last row to row 0
+LINE_EDGES = ((240, 910, 753, 262), (300, 61, 50, 302), (7, 13, 30, 8),
+              (9, 1, 3, 10))
 # (R, T) of K7/K8 inputs at the edges of csrc/rowfilters.cu's ring (32 rows a
 # warp, a 128-byte line of each a tile, 4 tiles a ring; 64-sample tiles in a
 # design tried): one row, a warp short, full, one past, and two full warps
@@ -934,11 +985,15 @@ def ragged_cases(dev):
     (K1's 64 or 60 samples, K2's 32 pixels) or of 4 bytes, an image wider
     than the line, shifts before 0 and past H, K2's conv4-conv7, and bloom
     rows whose source moves back (dx <= 0, or p*dx wrapping), clamps at
-    n_eq - 1 or meets the forced-zero sample; K3 and K4 at their edges
-    (K3_EDGES, K4_EDGES), K5 at small H, bands cut short and steps past 19H
-    from the seeds 0 and 2**32 - 1 (K5_EDGES), bloom_line_width on windows
-    from below 0, spilling, past 2H and wrapping, with max_e 0, -1 and
-    96256 (LINE_EDGES); the last four at batch 5 and 512; K7 and K8 at the
+    n_eq - 1 or meets the forced-zero sample, its lines on rows that pass
+    the field's last row to row 0, the field one byte off the word grid;
+    K3 and K4 at their edges (K3_EDGES, K4_EDGES), K5 at small H, bands cut
+    short and steps past 19H from the seeds 0 and 2**32 - 1 (K5_EDGES),
+    bloom_line_width on windows from below 0, spilling, past 2H and
+    wrapping, with max_e 0, -1 and 96256 (LINE_EDGES), K3's and its lines
+    also passing the field's last row to row 0, the wrapping ones on a
+    field 3 bytes off the 16-byte grid; the last four at batch 5 and 512;
+    K7 and K8 at the
     edges of their ring (ROW_EDGES) and with x off y's line grid
     (ROW_OFF_GRID), on full-range int32 samples, whose sums wrap; K11 and
     K12 at odd batches, NES's rows, short rows and unaligned input
@@ -966,8 +1021,21 @@ def ragged_cases(dev):
         yield ("encode_rows", f"cc {cc}, w {w}, destw {destw}"
                + ("" if coefs else ", no bandlimit"), a,
                dict(coefs=coefs, xo_mod=3 % cc, destw=destw))
-    L, H, av, row0 = 37, 200, 150, 2
+    L, H, av, V = 37, 200, 150, 40
     three = dem._eq_coefs(ntsc)
+
+    def field_of(B, V, H, off, lo=-128):
+        """A seeded int8 field (B, V, H) starting `off` bytes past the
+        allocation's start."""
+        buf = t(rng.integers(lo, 128, B * V * H + off).astype(np.int8))
+        return buf[off:].view(B, V, H)
+
+    def rows_of(B, L, V, wrap):
+        """Line l on row l, or (wrap) on rows that pass the last to row 0."""
+        first = V - L // 2 if wrap else 0
+        return t(np.broadcast_to((first + np.arange(L)) % V, (B, L)).astype(
+            np.int32))
+
     modes = ([("decode_rows", 4, three, 641), ("decode_rows", 5, three, 37),
               ("decode_rows", 4, three, 640)]
              + [("decode_rows_conv", 4, ("conv", taps), outw)
@@ -976,34 +1044,37 @@ def ragged_cases(dev):
                 ("decode_rows_bloom", 5, three, 37),
                 ("decode_rows_bloom", 4, ("conv", 7), 640)])
     for name, cc, coefs, outw in modes:
-        a = (t(rng.integers(-127, 128, (B, row0 + L + 1, H), dtype=np.int8)),
+        a = (field_of(B, V, H, 1, lo=-127), rows_of(B, L, V, True),
              t(i32(-40, 2 * H - 20, (B, L))),
              t(i32(-60000, 60000, (B, L, cc))),
              t(i32(-60000, 60000, (B, L, cc))), t(i32(-20, 20, (B, L))),
              t(i32(150, 200, (B, L))))
-        k = dict(row0=row0, coefs=coefs, av_len=av, outw=outw)
-        label = f"cc {cc}, outw {outw}" + (
+        k = dict(coefs=coefs, av_len=av, outw=outw)
+        label = f"cc {cc}, outw {outw}, wrapping lines" + (
             f", conv{coefs[1]}" if coefs[0] == "conv" else "")
         if name == "decode_rows_bloom":
             k.update({n: t(v) for n, v in
                       decode.bloom_steps(rng, B, L, av, outw, cc).items()})
         yield name, label, a, k
     for B in (5, MAIN_BATCH):  # 5: a part-full block of K3's four warps
-        for L, HP, H, W, c0, far in K3_EDGES:
-            kind = rng.integers(0, 4, (B, L))[..., None]
-            cols = np.arange(HP)
-            edge = rng.integers(0, HP, (B, L))[..., None]
-            rows = rng.integers(-30, 60, (B, L, HP))
+        for (L, pad, H, W, c0, far), wrap in itertools.product(
+                K3_EDGES, (False, True)):
+            V = L + 8
+            kind = rng.integers(0, 4, (B, V))[..., None]
+            cols = np.arange(H)
+            edge = rng.integers(0, H, (B, V))[..., None]
+            rows = rng.integers(-30, 60, (B, V, H))
             rows = np.where((kind == 3) & (cols >= edge) & (cols < edge + 40),
                             -40, rows)
             rows = np.where(kind == 1, -100, np.where(kind == 2, 100, rows))
             act = rng.random((B, L)) > 0.2
             act[:, 5:15] = False
-            yield ("hsync_chase", f"B {B}, L {L}, HP {HP}, H {H}, W {W}, "
-                   f"c0 {c0}, hsync0 in [{-far * H}, {H + far * H})",
-                   (t(rows.astype(np.int8)), t(act),
+            yield ("hsync_chase", f"B {B}, L {L}, pad {pad}, H {H}, W {W}, "
+                   f"c0 {c0}, hsync0 in [{-far * H}, {H + far * H})"
+                   + (", wrapping lines" if wrap else ""),
+                   (t(rows.astype(np.int8)), rows_of(B, L, V, wrap), t(act),
                     t(i32(-far * H, H + far * H, B))),
-                   dict(W=W, c0=c0, thresh=-160, H=H))
+                   dict(pad=pad, W=W, c0=c0, thresh=-160))
         for L, m, cc, vp in K4_EDGES:
             lim = 1 << 30
             yield ("ccf_ema", f"B {B}, L {L}, m {m}, CC {cc}, VP {vp}",
@@ -1016,7 +1087,8 @@ def ragged_cases(dev):
             yield ("vhs_region_b_entries", f"B {B}, H {H}, n_steps {n}",
                    (t(st.astype(np.uint32).view(np.int32)),),
                    dict(n_steps=n, H=H))
-        for L, H, av, row0, extra in LINE_EDGES:
+        for (L, H, av, V), wrap in itertools.product(LINE_EDGES,
+                                                     (False, True)):
             # windows inside the row, from below 0, spilling, past 2H, or
             # from any int32 (xpos + av wraps); max_e 0, -1, 96256
             kind = rng.integers(0, 5, (B, L))
@@ -1025,12 +1097,14 @@ def ragged_cases(dev):
             max_e = rng.integers(-2**31, 2**31, B)
             max_e[:3] = [0, -1, 96256]
             yield ("bloom_line_width",
-                   f"B {B}, L {L}, H {H}, av {av}, row0 {row0}",
-                   (t(rng.integers(-128, 128, (B, row0 + L + 1 + extra, H),
-                                   dtype=np.int8)),
+                   f"B {B}, L {L}, H {H}, av {av}, V {V}"
+                   + (", wrapping lines, field 3 bytes off 16" if wrap
+                      else ""),
+                   (field_of(B, V, H, 3 if wrap else 0),
+                    rows_of(B, L, V, wrap),
                     t((lo + (rng.random((B, L)) * (hi - lo))).astype(
                         np.int64).astype(np.int32)),
-                    t(max_e.astype(np.int32))), dict(row0=row0, av_len=av))
+                    t(max_e.astype(np.int32))), dict(av_len=av))
     sets = np.array([tuple(c) for c in three], np.int32)
     for R, T, off in ([(R, T, False) for R, T in ROW_EDGES]
                       + [(R, T, True) for R, T in ROW_OFF_GRID]):
@@ -1184,6 +1258,7 @@ def set_rates(rep) -> None:
 # design variant of that kernel is timed on (time_variants; K7's and K8's
 # derived from K1's and K2's, DERIVED)
 VARIANT_PATHS = {
+    "ntsc_decode_rows": ("decode_rows", "NTSC", {}),
     "ntsc_hsync_chase": ("hsync_chase", "NTSC", {}),
     "ntsc_ccf_ema": ("ccf_ema", "NTSC", {}),
     "ntsc_vhs_region_b_entries": ("vhs_region_b_entries", "NTSCVHS", VHS_KW),
@@ -1661,10 +1736,9 @@ def stage_times(pipeline, fn):
 
 def profile_line_scan(pipeline, cfg, st, imgs, B, kw, card):
     """The device operations of one step's line scan (models/demodulate.py
-    _line_scan: the rolled4 row select, the rows2 concatenation, the burst
-    gather and roll, K3, K4, the waves), each torch op with its own device
-    time and each port kernel, from one call of _line_scan on the step's
-    own arguments under torch.profiler."""
+    _line_scan: the burst gather and roll, K3, K4, the waves), each torch
+    op with its own device time and each port kernel, from one call of
+    _line_scan on the step's own arguments under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from ntsc_crt_tpu_torch.models import demodulate as dem

@@ -7,8 +7,11 @@
 // the convolution EQ (coefs=("conv", taps), _fir_chain) and the bloom scan
 // conversion (bloom_dx/bloom_lidx).
 //
-// Per sample t a lane takes sig[shift + t] of its rolled field rows (line l
-// continues into line l+1, the reference's flat reads, crt_core.c:538-543),
+// Per sample t a lane takes sig[shift + t] of its line, read in place from
+// the noisy field (B, V, H): line l starts on field row line_row[l] and
+// continues into the next (the reference's flat reads, crt_core.c:538-543),
+// so its sample x < 2H is byte (line_row * H + x) mod (V * H) of its frame;
+// a line on row V - 1 continues at the frame's row 0.  It then
 // forms Y = s + bright and I/Q = s*wave >> 9 with the wave phase t % CC, and
 // runs the three equalizers held in registers: the 11-int 3-band chain
 // (crt_core.c:206-233) or a FIR of 4-7 taps keeping taps-1 inputs of
@@ -41,7 +44,14 @@
 //   tile as whole aligned 4-byte words, consecutive lanes on consecutive
 //   words, 8 loads a lane in flight before the first is stored (tile.cuh:
 //   copy_block); a lane reads its row from its shift's byte offset, and
-//   bytes outside the two field rows or from av on are masked to 0.
+//   bytes outside the line's two field rows or from av on are masked to 0.
+//   Only a tile that keeps a byte past a row's frame end (a line on row
+//   V - 1 reading on into row 0: one line a frame at most, in its last
+//   tile) takes the frame-aware load, which reads a word cut by the line's
+//   start or the frame's end byte by byte; every other tile reads plain
+//   aligned words, as from a copy of the rows.  At batch 512 on an H100
+//   80GB HBM3 at 700 W, a test a word cost 5.5 %, this warp vote a tile
+//   1.4 % (chip_smoke.time_variants, NTSC's inputs).
 // - Output: each lane writes its pixels' R, G, B into a 32-row x 32-pixel
 //   tile, which the warp writes out a row at a time (tile.cuh: store_rows,
 //   4-byte words where outw % 4 == 0, else bytes).
@@ -65,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "eq3.cuh"  // ThreeBand, the 3-band equalizer of one channel
 #include "int32.cuh"
@@ -140,13 +151,31 @@ __device__ __forceinline__ int aligned_by(const int8_t* line, int sh) {
     return (int)((reinterpret_cast<uintptr_t>(line) + sh) & 3);
 }
 
+// The kept bytes of samples x .. x + 3 of a line one at a time: sample
+// x + k lies at line[x + k], or, at or past fe (the frame's end, from the
+// line), vh bytes earlier, at the frame's start
+__device__ __forceinline__ uint32_t line_bytes(const int8_t* line,
+                                               long long x, long long fe,
+                                               long long vh, uint32_t keep) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        if ((keep >> (8 * k)) & 0xFFu) {
+            const long long at = x + k >= fe ? x + k - vh : x + k;
+            v |= (uint32_t)(uint8_t)line[at] << (8 * k);
+        }
+    }
+    return v;
+}
+
 // Launched with one warp a block (WARP_ROWS threads), on rows
 // 32*blockIdx.x ...; dynamic shared memory: the output tile (32 x OPITCH
 // bytes), in static mode the ring (32 x RPITCH ints), then the input tile
 // (32 x ipitch bytes).
 template <int CC, class Eq, bool BLOOM>
 __global__ void __launch_bounds__(WARP_ROWS) decode_rows_kernel(
-    const int8_t* __restrict__ rows,     // (B, NR, H) rolled field rows
+    const int8_t* __restrict__ field,    // (B, V, H) the noisy field
+    const int* __restrict__ line_row,    // (B, L) line l's first field row
     const int* __restrict__ shifts,      // (B, L) sample offset of line l
     const int* __restrict__ waveI,       // (B, L, CC)
     const int* __restrict__ waveQ,       // (B, L, CC)
@@ -155,7 +184,7 @@ __global__ void __launch_bounds__(WARP_ROWS) decode_rows_kernel(
     const int* __restrict__ bloom_dx,    // (B, L), bloom mode only
     const int* __restrict__ bloom_lidx,  // (B, L), bloom mode only
     uint8_t* __restrict__ out,           // (B, L, outw, 3)
-    int B, int L, int NR, int H, int row0, int av, int n_eq, int outw,
+    int B, int L, int V, int H, int av, int n_eq, int outw,
     int dx, int ipitch, bool words, typename Eq::Coefs cy,
     typename Eq::Coefs ci, typename Eq::Coefs cq) {
     extern __shared__ __align__(16) uint8_t smem[];
@@ -163,8 +192,9 @@ __global__ void __launch_bounds__(WARP_ROWS) decode_rows_kernel(
     int* ring = reinterpret_cast<int*>(smem + WARP_ROWS * OPITCH);
     int8_t* itile = reinterpret_cast<int8_t*>(
         ring + (BLOOM ? 0 : WARP_ROWS * RPITCH<CC>));
-    __shared__ const int8_t* lines[WARP_ROWS];  // each row's field line
-    __shared__ int starts[WARP_ROWS];           // and its shift
+    __shared__ const int8_t* lines[WARP_ROWS];  // each row's field line,
+    __shared__ int starts[WARP_ROWS];           // its shift
+    __shared__ int fends[WARP_ROWS];            // and its frame's end
 
     const int lane = threadIdx.x;
     const long long r0 = (long long)blockIdx.x * WARP_ROWS;
@@ -174,9 +204,11 @@ __global__ void __launch_bounds__(WARP_ROWS) decode_rows_kernel(
     const int b = (int)(r / L);
     const int l = (int)(r % L);
     const int sh = shifts[r];
-    const int8_t* line = rows + ((long long)b * NR + row0 + l) * H;
+    const int lr = line_row[r];
+    const int8_t* line = field + ((long long)b * V + lr) * H;
     lines[lane] = line;
     starts[lane] = sh;
+    fends[lane] = (V - lr) * H;  // the frame's end, from the line
     int wi[CC], wq[CC];
 #pragma unroll
     for (int k = 0; k < CC; ++k) {
@@ -195,8 +227,8 @@ __global__ void __launch_bounds__(WARP_ROWS) decode_rows_kernel(
     uint8_t* opx = otile + lane * OPITCH;
 
     // samples [t0, t0 + n) of every row into the input tile (t0 a multiple
-    // of 4), as whole aligned words: 0 outside the two field rows and from
-    // av on
+    // of 4), as whole aligned words: 0 outside the line's two field rows
+    // and from av on
     auto stage = [&](int t0, int n) {
         __syncwarp();  // lines/starts written; the last tile marched
         // word c of row q: its first byte's x, and the row's end
@@ -205,24 +237,50 @@ __global__ void __launch_bounds__(WARP_ROWS) decode_rows_kernel(
             x = (long long)s + t0 - aligned_by(lines[q], s) + 4 * c;
             hi = min(2LL * H, (long long)s + av);
         };
-        copy_block<Word>(
-            nrows, (n + 6) / 4,
-            [&](int q, int c) {
-                long long x, hi;
-                at(q, c, x, hi);
-                uint32_t keep = 0;  // the bytes in [0, hi)
+        // the tile's words on a row end before byte x_end; where a row
+        // keeps a byte at or past its frame's end (a line on row V - 1
+        // that continues on row 0), the warp reads the tile's words
+        // through the frame-aware load, else as plain aligned words
+        // (in wrapping int32: a shift so large that the sums wrap keeps no
+        // byte, and reads none)
+        const int s = starts[lane];
+        const int x_end = add32(s, t0 - aligned_by(lines[lane], s) +
+                                       4 * ((n + 6) / 4));
+        const bool wraps = __any_sync(
+            0xffffffffu,
+            min(x_end, min(2 * H, add32(s, av))) > fends[lane]);
+        auto copy = [&](auto wrap) {
+            copy_block<Word>(
+                nrows, (n + 6) / 4,
+                [&](int q, int c) {
+                    long long x, hi;
+                    at(q, c, x, hi);
+                    uint32_t keep = 0;  // the bytes in [0, hi)
 #pragma unroll
-                for (int k = 0; k < 4; ++k)
-                    if (x + k >= 0 && x + k < hi) keep |= 0xFFu << (8 * k);
-                return Word{keep ? *reinterpret_cast<const uint32_t*>(
-                                       lines[q] + x)
-                                 : 0u,
-                            keep};
-            },
-            [&](int q, int c, Word w) {
-                reinterpret_cast<uint32_t*>(itile + q * ipitch)[c] =
-                    w.v & w.keep;
-            });
+                    for (int k = 0; k < 4; ++k)
+                        if (x + k >= 0 && x + k < hi)
+                            keep |= 0xFFu << (8 * k);
+                    if (!keep) return Word{0u, 0u};
+                    if constexpr (decltype(wrap)::value) {
+                        const long long fe = fends[q];
+                        if (x < 0 || x + 3 >= fe)
+                            return Word{line_bytes(lines[q], x, fe,
+                                                   (long long)V * H, keep),
+                                        keep};
+                    }
+                    return Word{
+                        *reinterpret_cast<const uint32_t*>(lines[q] + x),
+                        keep};
+                },
+                [&](int q, int c, Word w) {
+                    reinterpret_cast<uint32_t*>(itile + q * ipitch)[c] =
+                        w.v & w.keep;
+                });
+        };
+        if (wraps)
+            copy(std::true_type{});
+        else
+            copy(std::false_type{});
         __syncwarp();
     };
     int p0 = 0;  // first pixel of the output tile
@@ -324,10 +382,11 @@ __global__ void __launch_bounds__(WARP_ROWS) decode_rows_kernel(
 }
 
 template <int CC, class Eq, bool BLOOM>
-int launch(const int8_t* rows, const int* shifts, const int* waveI,
-           const int* waveQ, const int* bright, const int* contrast,
-           const int* bloom_dx, const int* bloom_lidx, uint8_t* out, int B,
-           int L, int NR, int H, int row0, int av, int n_eq, int outw,
+int launch(const int8_t* field, const int* line_row, const int* shifts,
+           const int* waveI, const int* waveQ, const int* bright,
+           const int* contrast, const int* bloom_dx, const int* bloom_lidx,
+           uint8_t* out, int B, int L, int V, int H, int av, int n_eq,
+           int outw,
            const typename Eq::Coefs* c, cudaStream_t stream) {
     const long long n = (long long)B * L;
     if (n == 0) return (int)cudaSuccess;
@@ -346,9 +405,9 @@ int launch(const int8_t* rows, const int* shifts, const int* waveI,
     const bool words =
         outw % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
     kernel<<<blocks, WARP_ROWS, smem, stream>>>(
-        rows, shifts, waveI, waveQ, bright, contrast, bloom_dx, bloom_lidx,
-        out, B, L, NR, H, row0, av, n_eq, outw, dx, ipitch, words, c[0], c[1],
-        c[2]);
+        field, line_row, shifts, waveI, waveQ, bright, contrast, bloom_dx,
+        bloom_lidx, out, B, L, V, H, av, n_eq, outw, dx, ipitch, words, c[0],
+        c[1], c[2]);
     return (int)cudaGetLastError();
 }
 
@@ -363,22 +422,23 @@ int dispatch_bloom(bool bloom, Args&& args, const typename Eq::Coefs* c) {
 // eq: 0 = 3-band with coefs host int[15], (lf, hf, g_lo, g_mid, g_hi) for
 // Y, I, Q; 4..7 = the FIR of that many taps with coefs host int[taps + 1],
 // the weights then the shift.  bloom_dx/bloom_lidx null: the static scan
-// conversion; both given: bloom mode.
+// conversion; both given: bloom mode.  Each line_row lies in [0, V).
 extern "C" int ntsc_decode_rows(
-    const void* rows, const void* shifts, const void* waveI,
-    const void* waveQ, const void* bright, const void* contrast,
-    const void* bloom_dx, const void* bloom_lidx, const void* coefs,
-    void* out, int B, int L, int NR, int H, int row0, int av, int n_eq,
-    int outw, int cc, int eq, void* stream) {
+    const void* field, const void* line_row, const void* shifts,
+    const void* waveI, const void* waveQ, const void* bright,
+    const void* contrast, const void* bloom_dx, const void* bloom_lidx,
+    const void* coefs, void* out, int B, int L, int V, int H, int av,
+    int n_eq, int outw, int cc, int eq, void* stream) {
     const int* k = (const int*)coefs;
     auto s = static_cast<cudaStream_t>(stream);
     const bool bloom = bloom_dx != nullptr;
     if (bloom != (bloom_lidx != nullptr)) return (int)cudaErrorInvalidValue;
     auto args = [&](auto fn, auto c) {
-        return fn((const int8_t*)rows, (const int*)shifts, (const int*)waveI,
-                  (const int*)waveQ, (const int*)bright, (const int*)contrast,
+        return fn((const int8_t*)field, (const int*)line_row,
+                  (const int*)shifts, (const int*)waveI, (const int*)waveQ,
+                  (const int*)bright, (const int*)contrast,
                   (const int*)bloom_dx, (const int*)bloom_lidx, (uint8_t*)out,
-                  B, L, NR, H, row0, av, n_eq, outw, c, s);
+                  B, L, V, H, av, n_eq, outw, c, s);
     };
     if (eq == 0) {
         const EqCoefs c[3] = {{k[0], k[1], k[2], k[3], k[4]},

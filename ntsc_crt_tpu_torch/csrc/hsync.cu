@@ -10,6 +10,12 @@
 // is active.  The estimate chains line to line, so an entry is a strictly
 // serial walk over its L lines; window samples outside [0, HP) read as 0.
 //
+// The lines are read in place from the noisy field (B, V, H): line l starts
+// on row line_row[l] and runs on into the next, so its sample x is byte
+// (line_row * H + x) mod (V * H) of its frame, and HP = H + pad.  Only a
+// line whose HP samples pass the frame's end (it starts on row V - 1) wraps
+// to the frame's row 0.
+//
 // What bounds it on the H100: the dependent chain of L window searches.  A
 // line reads at most 2W bytes, so bandwidth plays no part; a line costs
 // the latency of its dependent steps and the warp's own instruction issue
@@ -38,10 +44,14 @@
 // - No warp-collective op sits in a per-line branch: each such branch
 //   costs a convergence barrier every line.  The flags are one ballot and
 //   the outputs one store per chunk of lines.
+// - The lines' first rows come a lane a line, read two chunks of lines
+//   ahead, and reach the staging lane by a shuffle.
 // - Where the estimate wrapped across H since the span was staged (the
-//   window moves by +-H) or the window leaves [0, HP), the line reads its
-//   window from the row itself: rare, slow, exact.  An estimate that starts
-//   outside [0, H), or W >= H, takes a one-lane loop for the whole entry.
+//   window moves by +-H), the window leaves [0, HP) or the line wraps to
+//   the frame's row 0 (one line a frame at most; its span is not staged),
+//   the line reads its window from the field itself, byte by byte where a
+//   word is cut: rare, slow, exact.  An estimate that starts outside
+//   [0, H), or W >= H, takes a one-lane loop for the whole entry.
 //
 // The TPU kernel's word packing, rebase and funnel exist only for the TPU's
 // layout and are not carried over.
@@ -57,19 +67,28 @@ constexpr int WARPS = 4;  // entries per block
 constexpr int MAX_W = 16;
 constexpr unsigned FULL = 0xffffffffu;
 
+// Sample x of the line whose first byte is byte st of `frame` (VH bytes):
+// byte st + x, wrapped to the frame's start past its end
+__device__ __forceinline__ int line_byte(const int8_t* __restrict__ frame,
+                                         int st, int x, int VH) {
+    const int at = st + x;
+    return frame[at >= VH ? at - VH : at];
+}
+
 // The chase one line at a time on one lane, for entries whose estimate
 // starts outside [0, H) or whose window is as wide as a line (W >= H):
 // the fast path's single-step wrap needs neither.
-__device__ void chase_serial(const int8_t* __restrict__ rows,
+__device__ void chase_serial(const int8_t* __restrict__ frame,
+                             const int* __restrict__ lrow,
                              const uint8_t* __restrict__ act,
                              int* __restrict__ o, int hs, int L, int HP,
-                             int W, int c0, int thresh, int H) {
+                             int VH, int W, int c0, int thresh, int H) {
     for (int l = 0; l < L; ++l) {
-        const int8_t* row = rows + (long long)l * HP;
+        const int st = lrow[l] * H;
         int run = 0, j = 2 * W;
         for (int t = 0; t < 2 * W; ++t) {
             const int x = hs + c0 + t;
-            run += (x >= 0 && x < HP) ? (int)row[x] : 0;
+            run += (x >= 0 && x < HP) ? line_byte(frame, st, x, VH) : 0;
             if (run <= thresh) {
                 j = t;
                 break;
@@ -82,21 +101,28 @@ __device__ void chase_serial(const int8_t* __restrict__ rows,
     }
 }
 
-// The aligned word of `row` whose first byte is byte xw of the row (xw a
-// multiple of 4 away from the row's address alignment), bytes outside
-// [0, HP) zeroed.
-__device__ __forceinline__ int clean_word(int word, int xw, int HP) {
-    unsigned keep = 0;
+// Samples xw .. xw + 3 of the line that starts at byte st of `frame` as one
+// word (xw a multiple of 4 away from the line's address alignment), those
+// outside [0, HP) zeroed: one aligned load where every byte lies in
+// [0, HP) and before the frame's end, else byte by byte.
+__device__ __forceinline__ int line_word(const int8_t* __restrict__ frame,
+                                         int st, int xw, int HP, int VH) {
+    if (xw >= 0 && xw + 3 < HP && st + xw + 3 < VH)
+        return *reinterpret_cast<const int*>(frame + st + xw);
+    unsigned u = 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-        keep |= (xw + i >= 0 && xw + i < HP) ? 0xffu << (8 * i) : 0u;
-    return (int)((unsigned)word & keep);
+    for (int i = 0; i < 4; ++i) {
+        const int x = xw + i;
+        if (x >= 0 && x < HP)
+            u |= (unsigned)(uint8_t)line_byte(frame, st, x, VH) << (8 * i);
+    }
+    return (int)u;
 }
 
 // Lane k's word of a span: the aligned words from row byte xa on, word k
 // at row byte xa + 4k, as cp.async copies them (one group).  A word with no
 // byte in [0, HP) is not read (zero filled); a word that straddles the
-// row's ends reads bytes of the rows beside it (or up to 3 past the
+// line's ends reads bytes of the rows beside it (or up to 3 past the
 // tensor): only windows inside [0, HP) are read from a span.
 __device__ __forceinline__ void stage_word(int* slot,
                                            const int8_t* __restrict__ row,
@@ -111,23 +137,28 @@ __device__ __forceinline__ void stage_word(int* slot,
 // LOOK lines of look-ahead; NWA words hold a window of 2W <= 4 * NWA bytes.
 template <int LOOK, int NWA>
 __global__ void __launch_bounds__(32 * WARPS) hsync_chase_kernel(
-    const int8_t* __restrict__ rows2,   // (B, L, HP) padded line rows
+    const int8_t* __restrict__ field,   // (B, V, H) the noisy field
+    const int* __restrict__ line_row,   // (B, L) each line's first row
     const uint8_t* __restrict__ active, // (B, L) bool
     const int* __restrict__ hsync0,     // (B,)
     int* __restrict__ out,              // (B, L) estimate after each line
-    int B, int L, int HP, int W, int c0, int thresh, int H) {
+    int B, int V, int L, int H, int HP, int W, int c0, int thresh) {
     static_assert(LOOK >= 2, "a span is read into registers a line early");
     constexpr int CH = LOOK * (32 / LOOK);  // lines a chunk: a flag a lane
     __shared__ int slots[WARPS][LOOK][32];
     const int lane = threadIdx.x & 31;
     const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
     if (b >= B) return;  // the whole warp: b is the warp's
-    const int8_t* rows = rows2 + (long long)b * L * HP;
+    const int VH = V * H;
+    const int8_t* frame = field + (long long)b * VH;
+    const int* lrow = line_row + (long long)b * L;
     const uint8_t* act = active + (long long)b * L;
     int* o = out + (long long)b * L;
     int hs = hsync0[b];
     if (hs < 0 || hs >= H || W >= H) {
-        if (lane == 0) chase_serial(rows, act, o, hs, L, HP, W, c0, thresh, H);
+        if (lane == 0)
+            chase_serial(frame, lrow, act, o, hs, L, HP, VH, W, c0, thresh,
+                         H);
         return;
     }
     int(*slot)[32] = slots[threadIdx.x >> 5];
@@ -142,17 +173,27 @@ __global__ void __launch_bounds__(32 * WARPS) hsync_chase_kernel(
             m |= (4 * r + i <= lane) ? 1u << (8 * i) : 0u;
         mask[r] = (int)m;
     }
+    // the first rows of chunks c, c + 1 and c + 2 of lines, a lane a line:
+    // the staging reads the first two, a chunk after the third is loaded
+    auto rows_of = [&](int c) {
+        return lane < CH && c + lane < L ? lrow[c + lane] : 0;
+    };
+    int rcur = rows_of(0), rnxt = rows_of(CH), rfar = rows_of(2 * CH);
+    // a line whose HP samples pass the frame's end: its span is not staged
+    const int last_st = VH - HP;
 
     // slot[j]: lane k's word of the span of the next line l = j (mod
     // LOOK): the line's bytes from x0[j] (the window offsets are measured
-    // from it), its words from row byte xa[j] <= x0[j]
-    int x0[LOOK], xa[LOOK];
+    // from it), its words from row byte xa[j] <= x0[j]; st[j] the line's
+    // first byte in the frame
+    int x0[LOOK], xa[LOOK], st[LOOK];
 #pragma unroll
     for (int j = 0; j < LOOK; ++j) {
-        const int8_t* row = rows + (long long)j * HP;
+        st[j] = __shfl_sync(FULL, rcur, j) * H;
+        const int8_t* row = frame + st[j];
         x0[j] = hs + c0 - LOOK * W;
         xa[j] = x0[j] - (int)((reinterpret_cast<uintptr_t>(row) + x0[j]) & 3);
-        stage_word(slot[j], row, xa[j], HP, lane, j < L);
+        stage_word(slot[j], row, xa[j], HP, lane, j < L && st[j] <= last_st);
     }
     cp_async_wait<LOOK - 1>();
     int word = slot[0][lane];
@@ -169,23 +210,19 @@ __global__ void __launch_bounds__(32 * WARPS) hsync_chase_kernel(
             for (int j = 0; j < LOOK; ++j) {
                 const int i = i0 + j, l = c + i;
                 if (i >= n) break;
-                const int8_t* row = rows + (long long)l * HP;
                 const int base = hs + c0;
                 const int off = base - x0[j];
                 // the window's words: from the span, or, where the estimate
-                // wrapped since the span was staged or the window leaves
-                // [0, HP), from the row itself (rare, slow, exact)
+                // wrapped since the span was staged, the window leaves
+                // [0, HP) or the line wraps, from the field itself (rare,
+                // slow, exact)
                 int src = word, ob = base - xa[j];
                 if ((unsigned)off > (unsigned)(2 * LOOK * W) || base < 0 ||
-                    base + tW > HP) {
-                    const int aw =
-                        (int)((reinterpret_cast<uintptr_t>(row) + base) & 3);
-                    const int xw = base - aw + 4 * lane;
-                    src = xw < HP && xw + 3 >= 0
-                              ? clean_word(
-                                    *reinterpret_cast<const int*>(row + xw),
-                                    xw, HP)
-                              : 0;
+                    base + tW > HP || st[j] > last_st) {
+                    const int aw = (int)((reinterpret_cast<uintptr_t>(
+                                              frame + st[j]) + base) & 3);
+                    src = line_word(frame, st[j], base - aw + 4 * lane, HP,
+                                    VH);
                     ob = aw;
                 }
                 int w[NWA + 1];
@@ -195,11 +232,15 @@ __global__ void __launch_bounds__(32 * WARPS) hsync_chase_kernel(
                 const int sh = (ob & 3) * 8;
                 // line l+LOOK's span into this slot; line l+1's word: off
                 // the chain below
+                const int ia = i + LOOK;  // line l+LOOK's lane, chunk c or c+1
+                st[j] = __shfl_sync(FULL, ia < CH ? rcur : rnxt,
+                                    ia < CH ? ia : ia - CH) * H;
+                const int8_t* ahead = frame + st[j];
                 x0[j] = base - LOOK * W;
-                const int8_t* ahead = row + (long long)LOOK * HP;
                 xa[j] = x0[j] - (int)((reinterpret_cast<uintptr_t>(ahead) +
                                        x0[j]) & 3);
-                stage_word(slot[j], ahead, xa[j], HP, lane, l + LOOK < L);
+                stage_word(slot[j], ahead, xa[j], HP, lane,
+                           l + LOOK < L && st[j] <= last_st);
                 cp_async_wait<LOOK - 1>();
                 const int next = slot[(j + 1) % LOOK][lane];
 
@@ -223,6 +264,9 @@ __global__ void __launch_bounds__(32 * WARPS) hsync_chase_kernel(
             }
         }
         if (lane < n) o[c + lane] = mine;
+        rcur = rnxt;
+        rnxt = rfar;
+        rfar = rows_of(c + 3 * CH);
     }
 }
 
@@ -233,24 +277,29 @@ constexpr int LOOK_WIDE = 2;
 
 }  // namespace
 
-// W must lie in [1, 16] and rows2 be 4-byte aligned: the wrapper checks it.
-extern "C" int ntsc_hsync_chase(const void* rows2, const void* active,
-                                const void* hsync0, void* out, int B, int L,
-                                int HP, int W, int c0, int thresh, int H,
+// W must lie in [1, 16], H + pad <= V * H < 2**31 and field be 4-byte
+// aligned: the wrapper checks it.  Each line_row lies in [0, V).
+extern "C" int ntsc_hsync_chase(const void* field, const void* line_row,
+                                const void* active, const void* hsync0,
+                                void* out, int B, int V, int L, int H,
+                                int pad, int W, int c0, int thresh,
                                 void* stream) {
-    if (W < 1 || W > MAX_W || B < 1 || L < 1 || HP < 1 || H < 1 ||
-        (reinterpret_cast<uintptr_t>(rows2) & 3) != 0)
+    const long long vh = (long long)V * H;
+    if (W < 1 || W > MAX_W || B < 1 || V < 1 || L < 1 || H < 1 || pad < 0 ||
+        vh >= (1LL << 31) || (long long)H + pad > vh ||
+        (reinterpret_cast<uintptr_t>(field) & 3) != 0)
         return (int)cudaErrorInvalidValue;
     const int blocks = (B + WARPS - 1) / WARPS;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const auto* r = (const int8_t*)rows2;
+    const auto* f = (const int8_t*)field;
+    const auto* r = (const int*)line_row;
     const auto* a = (const uint8_t*)active;
     const auto* h = (const int*)hsync0;
     if (W <= 8)
         hsync_chase_kernel<LOOK_NARROW, 4><<<blocks, 32 * WARPS, 0, st>>>(
-            r, a, h, (int*)out, B, L, HP, W, c0, thresh, H);
+            f, r, a, h, (int*)out, B, V, L, H, H + pad, W, c0, thresh);
     else
         hsync_chase_kernel<LOOK_WIDE, 8><<<blocks, 32 * WARPS, 0, st>>>(
-            r, a, h, (int*)out, B, L, HP, W, c0, thresh, H);
+            f, r, a, h, (int*)out, B, V, L, H, H + pad, W, c0, thresh);
     return (int)cudaGetLastError();
 }

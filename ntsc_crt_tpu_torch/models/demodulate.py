@@ -17,7 +17,9 @@ CRT_DO_HSYNC = 0).  Each stage keeps one formulation, the plain one:
    to 0 with fixed hsync), the burst gather and the ccf carrier EMA (kernel
    K4), then the decode waves (4-sample IQ extraction, or the 5-sample
    hue-rotated tables); with bloom the line sums and their energy
-   EMA (kernel bloom_line_width) give each line its width.
+   EMA (kernel bloom_line_width) give each line its width.  No line is
+   copied out of the noisy field: each reader takes a line's first field
+   row and reads the field in place (fastpath.line_samples).
 4. **Line decode** — alignment, Y/I/Q, EQ and scan conversion in kernel K2,
    the one stage split by line over a spatial group of cards
    (parallel/spatial.py); the others run whole on the frame's card.
@@ -204,9 +206,9 @@ def _line_scan(cfg: SystemConfig, inp2d, hsync0, ccf0, vsync, hue, hue_sn,
                do_hsync: bool = True):
     """Per-line sequential pass: hsync chase, ccf EMA and the decode waves
     (crt_core.c:409-536).  inp2d int8 (B, V, H); carries (B, ...); hue the
-    monitor hue (B,).  Returns (hsync', ccf', (xpos, beg, end, active,
-    waveI, waveQ) per line, rolled4) where rolled4[b, i] is field row
-    (top + i + vsync) mod V, i < L + 4.
+    monitor hue (B,).  Returns (hsync', ccf', (xpos, ypos, beg, end,
+    active, waveI, waveQ) per line), ypos the field row (top + l + vsync
+    + 3) mod V that line l's decode starts on (ynudge=+3).
     do_hsync=False is the CRT_DO_HSYNC=0 build: no chase, hsync pinned."""
     CC = cfg.cc_samples
     B = inp2d.shape[0]
@@ -222,23 +224,19 @@ def _line_scan(cfg: SystemConfig, inp2d, hsync0, ccf0, vsync, hue, hue_sn,
     end_l = ((lrel + 1) * (outh + v_fac)) // cfg.lines + field_px[:, None]
     active_l = beg_l < outh                               # (B, L)
 
-    # padded per-line rows: row l = field row (l + vsync) mod V, continued
-    # into the following row (flat-indexing reads; at the bottom the
-    # reference reads out of bounds — UB — and this wraps to the top).  The
-    # pad covers the furthest read: the burst window at the largest hsync
-    # and the hsync search window.
+    # line l's samples, read in place: field row (top + l + vsync) mod V,
+    # continued into the following row (flat-indexing reads; at the bottom
+    # the reference reads out of bounds — UB — and this wraps to the top).
+    # The chase's pad covers the furthest read: the burst window at the
+    # largest hsync and the hsync search window.
     PAD = max(cfg.cb_beg + cfg.burst_len, cfg.sync_beg + 2 * W) + 2 * W
-    row_idx4 = posmod(cfg.top + torch.arange(L + 4, dtype=torch.int32,
-                                             device=dev)[None, :]
-                      + vsync[:, None], V)
-    rolled4 = fastpath.select_rows_batched(inp2d, row_idx4)  # (B, L+4, H)
-    rows2 = torch.cat([rolled4[:, :L], rolled4[:, 1:L + 1, :PAD]], dim=2)
+    row_l = posmod(lines[None, :] + vsync[:, None], V)   # (B, L)
 
     if do_hsync:
         hsync_l = hsync.hsync_chase(
-            rows2, active_l.contiguous(), hsync0.contiguous(), W=W,
-            c0=cfg.sync_beg - W, thresh=cfg.hsync_thresh * cfg.sync_level,
-            H=H)
+            inp2d, row_l, active_l.contiguous(), hsync0.contiguous(),
+            pad=PAD, W=W, c0=cfg.sync_beg - W,
+            thresh=cfg.hsync_thresh * cfg.sync_level)
     else:
         # crt_core.c:446-448: every processed line pins v->hsync = 0
         ever = torch.cumsum(active_l.to(torch.int32), dim=1) > 0
@@ -254,8 +252,9 @@ def _line_scan(cfg: SystemConfig, inp2d, hsync0, ccf0, vsync, hue, hue_sn,
         bbase = (hsync_l & ~3) + cfg.cb_beg
     else:
         bbase = hsync_l - crem(hsync_l, CC) + cfg.cb_beg
-    bidx = bbase.long()[..., None] + torch.arange(cfg.burst_len, device=dev)
-    bvals = torch.gather(rows2, 2, bidx).to(torch.int32)  # (B, L, burst_len)
+    bvals = fastpath.line_samples(
+        inp2d, row_l, torch.arange(cfg.burst_len, device=dev),
+        offset=bbase).to(torch.int32)                     # (B, L, burst_len)
     m = cfg.burst_len // CC
     # class k is burst column (k - cb_beg) mod CC: a rotation, which a list
     # index would copy to the card through a stream synchronize
@@ -293,8 +292,8 @@ def _line_scan(cfg: SystemConfig, inp2d, hsync0, ccf0, vsync, hue, hue_sn,
         dci, dcq = dci[..., None], dcq[..., None]
         waveI = ((dci * csI[:, None] + dcq * snI[:, None]) >> 15) * sat
         waveQ = ((dci * csQ[:, None] + dcq * snQ[:, None]) >> 15) * sat
-    return (hsync_f, ccf_f, (xpos_l, beg_l, end_l, active_l, waveI, waveQ),
-            rolled4)
+    return hsync_f, ccf_f, (xpos_l, ypos_l, beg_l, end_l, active_l, waveI,
+                            waveQ)
 
 
 # ---------------------------------------------------------------------------
@@ -367,17 +366,17 @@ def demodulate_core(
     with profiling.span("demodulate.line_scan"):
         ratio = ((outh << 16) // cfg.lines + 32768) >> 16
         field_px = field * (ratio // 2)
-        hsync_new, ccf_new, outs, rolled4 = _line_scan(
+        hsync_new, ccf_new, outs = _line_scan(
             cfg, inp2d, _b(hsync, B, dev), ccf.to(torch.int32), vsync_new,
             _b(mon.hue, B, dev), hue_sn, hue_cs, saturation, outh, v_fac,
             field_px, do_hsync=do_hsync)
-        xpos_l, beg_l, end_l, active_l, wvI_l, wvQ_l = outs
+        xpos_l, ypos_l, beg_l, end_l, active_l, wvI_l, wvQ_l = outs
 
-        # line l reads field rows l+3 and l+4 (ynudge=+3), i.e. rolled4
-        # from row 3
+        # line l reads field rows ypos and ypos + 1 (mod V)
         shifts, bloom, drawn = xpos_l, {}, None
         if do_bloom:
-            dx_l, scan_l = _bloom_lines(cfg, rolled4, xpos_l, noise, outw)
+            dx_l, scan_l = _bloom_lines(cfg, inp2d, ypos_l, xpos_l, noise,
+                                        outw)
             lidx_l = scan_l >> 12
             shifts = xpos_l + lidx_l          # the EQ starts at scanL >> 12
             # the carrier phase at that start: tables rotated by lidx mod CC
@@ -389,15 +388,15 @@ def demodulate_core(
                          bloom_lidx=lidx_l.contiguous())
             drawn = dict(bloom_dx=bloom["bloom_dx"],
                          bloom_scan=scan_l.contiguous(), av_len=AV)
-    # K2, split by line over the active spatial group: line l reads rolled4
-    # rows l + 3 and l + 4, so a block of lines [lo, hi) takes [lo, hi + 4)
+    # K2, split by line over the active spatial group: a line may read any
+    # field row, so every card takes the whole field
     with profiling.span("demodulate.decode"):
         rgb = spatial.shard_lines_call(
-            decode.decode_rows, rolled4, shifts.contiguous(),
-            wvI_l.contiguous(), wvQ_l.contiguous(),
+            decode.decode_rows, inp2d, ypos_l.contiguous(),
+            shifts.contiguous(), wvI_l.contiguous(), wvQ_l.contiguous(),
             bright[:, None].expand(B, L).contiguous(),
             _b(mon.contrast, B, dev)[:, None].expand(B, L).contiguous(),
-            halo={0: 4}, row0=3, coefs=coefs, av_len=AV, outw=outw, **bloom)
+            whole=(0,), coefs=coefs, av_len=AV, outw=outw, **bloom)
     with profiling.span("demodulate.place"):
         out_new = _place_rows(rgb, out_prev, beg_l, end_l, active_l,
                               mon.blend, mon.scanlines, outh, bloom=drawn,
@@ -406,18 +405,20 @@ def demodulate_core(
                          rn=rn_new, randstate=randstate)
 
 
-def _bloom_lines(cfg: SystemConfig, rolled4, xpos_l, noise, outw: int):
+def _bloom_lines(cfg: SystemConfig, inp2d, ypos_l, xpos_l, noise,
+                 outw: int):
     """Beam-energy bloom (crt_core.c:512-532): each line's sample sum drives
     an energy EMA that sets the drawn line's width; kernel
-    bloom_line_width forms both.  rolled4 int8 (B, L+4, H): line l reads
-    field row 3 + l and, where the [xpos, xpos + AV) window spills, the
-    next.  Returns (dx, scan_l) int32 (B, L): each line's pixel step and
+    bloom_line_width forms both.  inp2d int8 (B, V, H): line l reads field
+    row ypos_l[l] and, where the [xpos, xpos + AV) window spills, the next
+    (mod V).  Returns (dx, scan_l) int32 (B, L): each line's pixel step and
     its first sample in 1/4096 (the EQ starts at scan_l >> 12; pixel p is
     drawn iff scan_l + p * dx < (AV - 1) << 12, bloom_drawn)."""
     AV = cfg.av_len
     max_e = (128 + cdiv(noise, 2)) * AV                   # (B,)
-    prev_e = decode.bloom_line_width(rolled4, xpos_l.contiguous(),
-                                     max_e.contiguous(), row0=3, av_len=AV)
+    prev_e = decode.bloom_line_width(inp2d, ypos_l.contiguous(),
+                                     xpos_l.contiguous(), max_e.contiguous(),
+                                     av_len=AV)
     line_w = (AV * 112 // 128) + (prev_e >> 9)
     dx = (line_w << 12) // outw
     scan_l = ((AV // 2) - (line_w >> 1) + 8) << 12

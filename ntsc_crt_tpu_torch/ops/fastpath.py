@@ -19,6 +19,26 @@ def select_rows_batched(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return data[b, idx.long()]
 
 
+def line_samples(field: torch.Tensor, line_row: torch.Tensor,
+                 x: torch.Tensor, offset: torch.Tensor = None) -> torch.Tensor:
+    """Samples offset + x of each line, read in place from the field: a
+    line starts on field row line_row and runs on through the rows after
+    it, the last row continuing at row 0 of the same frame (the reference's
+    flat reads; past the field's end they are UB there), so its sample i is
+    byte (line_row * H + i) mod (V * H) of the frame.  field (B, V, H);
+    line_row (B, L); x int64 >= 0, (K,) or (B, L, K); offset (B, L) >= 0,
+    each line's first sample, or None for 0.  Returns (B, L, K) of field's
+    dtype."""
+    B, V, H = field.shape
+    first = line_row.long() * H
+    if offset is not None:
+        first += offset
+    flat = first[..., None] + x
+    flat = flat.remainder_(V * H).expand(B, line_row.shape[1], -1)
+    return torch.gather(field.reshape(B, V * H), 1,
+                        flat.reshape(B, -1)).view(flat.shape)
+
+
 def shift_rows(ext: torch.Tensor, shifts: torch.Tensor,
                out_len: int) -> torch.Tensor:
     """out[r, i] = ext[r, shifts[r] + i] for i < out_len, as int32; reads

@@ -1,14 +1,16 @@
 """K2 ``decode_rows``, the per-line decode, and ``bloom_line_width``, the
 bloom build's line energy.
 
-Per (frame, line) row: sig[t] = concat(rows[b, row0 + l], rows[b, row0 + l
-+ 1])[shift + t] (the reference's flat `sig[pos + i]` reads,
-crt_core.c:538-543); Y = sig + bright, I/Q = sig * wave[t % cc] >> 9; an
-EQ per channel — the 3-band equalizer (crt_core.c:206-233) or, with
-``coefs=("conv", taps)``, the FIR of the USE_CONVOLUTION build
-(crt_core.c:96-147, 4-sample chroma only); oy << 4, oi >> 3, oq >> 3; the
-lerp scan conversion to outw pixels; YIQ -> RGB, contrast and clamp
-(crt_core.c:555-611).
+Per (frame, line) row: sig[t] = line[shift + t], the line read in place
+from the noisy field (B, V, H): it starts on field row line_row[b, l] and
+continues into the next row, the last row into row 0 of the same frame (the
+reference's flat `sig[pos + i]` reads, crt_core.c:538-543;
+fastpath.line_samples), its samples from 2H on reading as 0; Y = sig +
+bright, I/Q = sig * wave[t % cc] >> 9; an EQ per channel — the 3-band
+equalizer (crt_core.c:206-233) or, with ``coefs=("conv", taps)``, the FIR
+of the USE_CONVOLUTION build (crt_core.c:96-147, 4-sample chroma only); oy
+<< 4, oi >> 3, oq >> 3; the lerp scan conversion to outw pixels; YIQ ->
+RGB, contrast and clamp (crt_core.c:555-611).
 
 Bloom mode (``bloom_dx``/``bloom_lidx``, crt_core.c:512-532): row r draws
 pixel p from samples t = max((p * dx[r]) >> 12, 0) and t + 1 instead of the
@@ -55,33 +57,35 @@ def _eq_code(coefs) -> tuple[int, list[int]]:
     return 0, [int(v) for c in coefs for v in c]
 
 
-def decode_rows(rows: torch.Tensor, shifts: torch.Tensor, waveI: torch.Tensor,
-                waveQ: torch.Tensor, bright: torch.Tensor,
-                contrast: torch.Tensor, *, row0: int, coefs, av_len: int,
-                outw: int, bloom_dx: torch.Tensor = None,
+def decode_rows(field: torch.Tensor, line_row: torch.Tensor,
+                shifts: torch.Tensor, waveI: torch.Tensor, waveQ: torch.Tensor,
+                bright: torch.Tensor, contrast: torch.Tensor, *, coefs,
+                av_len: int, outw: int, bloom_dx: torch.Tensor = None,
                 bloom_lidx: torch.Tensor = None) -> torch.Tensor:
-    """rows int8 (B, NR, H) with NR >= row0 + L + 1; shifts int32 (B, L),
-    each line's active-video start; waveI/waveQ int32 (B, L, cc), cc = 4 or
-    5; bright/contrast int32 (B, L); coefs three filters.EQCoefs (Y, I, Q)
-    or ("conv", taps) with taps 4..7 (cc = 4 only); bloom_dx/bloom_lidx
-    int32 (B, L), together, for bloom mode.  Returns uint8 (B, L, outw, 3).
-    Samples past the two rows read as 0."""
+    """field int8 (B, V, H); line_row int32 (B, L), each line's first field
+    row, in [0, V); shifts int32 (B, L), each line's active-video start;
+    waveI/waveQ int32 (B, L, cc), cc = 4 or 5; bright/contrast int32
+    (B, L); coefs three filters.EQCoefs (Y, I, Q) or ("conv", taps) with
+    taps 4..7 (cc = 4 only); bloom_dx/bloom_lidx int32 (B, L), together,
+    for bloom mode.  Returns uint8 (B, L, outw, 3).  Samples past a line's
+    two rows read as 0."""
     conv = coefs[0] == "conv"
     if conv and coefs[1] not in filters._CONV_EQ_KERNELS:
         raise ValueError(f"decode_rows: no {coefs[1]}-tap convolution EQ")
     if (bloom_dx is None) != (bloom_lidx is None):
         raise ValueError("decode_rows: bloom_dx and bloom_lidx go together")
-    if rows.device.type == "cpu":
-        return decode_rows_plain(rows, shifts, waveI, waveQ, bright, contrast,
-                                 row0=row0, coefs=coefs, av_len=av_len,
+    if field.device.type == "cpu":
+        return decode_rows_plain(field, line_row, shifts, waveI, waveQ,
+                                 bright, contrast, coefs=coefs, av_len=av_len,
                                  outw=outw, bloom_dx=bloom_dx,
                                  bloom_lidx=bloom_lidx)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    dev = rows.device
-    B, NR, H = rows.shape
+    dev = field.device
+    B, V, H = field.shape
     L, cc = shifts.shape[1], waveI.shape[2]
-    build.check("rows", rows, torch.int8, (B, NR, H), dev)
+    build.check("field", field, torch.int8, (B, V, H), dev)
+    build.check("line_row", line_row, torch.int32, (B, L), dev)
     build.check("shifts", shifts, torch.int32, (B, L), dev)
     build.check("waveI", waveI, torch.int32, (B, L, cc), dev)
     build.check("waveQ", waveQ, torch.int32, (B, L, cc), dev)
@@ -94,34 +98,42 @@ def decode_rows(rows: torch.Tensor, shifts: torch.Tensor, waveI: torch.Tensor,
     if cc not in (4, 5) or (conv and cc != 4):
         raise ValueError(f"decode_rows: cc must be 4 or 5 (4 with the "
                          f"convolution EQ), got {cc}")
-    if not (row0 >= 0 and NR >= row0 + L + 1 and 2 <= av_len <= H
-            and outw >= 1):
-        raise ValueError(f"decode_rows: bad geometry NR={NR} row0={row0} "
-                         f"L={L} H={H} av_len={av_len} outw={outw}")
+    if not (V * H < 2**31 and 2 <= av_len <= H and outw >= 1):
+        raise ValueError(f"decode_rows: bad geometry V={V} L={L} H={H} "
+                         f"av_len={av_len} outw={outw}")
     out = torch.empty((B, L, outw, 3), dtype=torch.uint8, device=dev)
     eq, ints = _eq_code(coefs)
     k = (ctypes.c_int * len(ints))(*ints)
-    build.launch("ntsc_decode_rows", dev, rows.data_ptr(), shifts.data_ptr(),
-                 waveI.data_ptr(), waveQ.data_ptr(), bright.data_ptr(),
-                 contrast.data_ptr(), bloom_dx.data_ptr() if bloom else None,
+    build.launch("ntsc_decode_rows", dev, field.data_ptr(),
+                 line_row.data_ptr(), shifts.data_ptr(), waveI.data_ptr(),
+                 waveQ.data_ptr(), bright.data_ptr(), contrast.data_ptr(),
+                 bloom_dx.data_ptr() if bloom else None,
                  bloom_lidx.data_ptr() if bloom else None, ctypes.addressof(k),
-                 out.data_ptr(), B, L, NR, H, row0, av_len,
+                 out.data_ptr(), B, L, V, H, av_len,
                  eq_len(av_len, cc) if bloom else av_len, outw, cc, eq,
                  mode="bloom" if bloom else "conv" if conv else None)
     return out
 
 
-def decode_rows_plain(rows, shifts, waveI, waveQ, bright, contrast, *,
-                      row0: int, coefs, av_len: int, outw: int,
+def line_pairs(field: torch.Tensor, line_row: torch.Tensor) -> torch.Tensor:
+    """Each line's two field rows copied out, (B, L, 2H): the rows the plain
+    versions read, as K2 and bloom_line_width read them in place."""
+    H = field.shape[2]
+    return fastpath.line_samples(field, line_row,
+                                 torch.arange(2 * H, device=field.device))
+
+
+def decode_rows_plain(field, line_row, shifts, waveI, waveQ, bright,
+                      contrast, *, coefs, av_len: int, outw: int,
                       bloom_dx=None, bloom_lidx=None) -> torch.Tensor:
-    """The same decode in plain torch: align, demodulate, one vectorised EQ
-    march over every row and channel, gather-lerp, YIQ -> RGB."""
+    """The same decode in plain torch: the lines copied out, align,
+    demodulate, one vectorised EQ march over every row and channel,
+    gather-lerp, YIQ -> RGB."""
     B, L = shifts.shape
-    H, cc = rows.shape[2], waveI.shape[2]
+    H, cc = field.shape[2], waveI.shape[2]
     bloom = bloom_dx is not None
     n = eq_len(av_len, cc) if bloom else av_len
-    ext = torch.cat([rows[:, row0:row0 + L], rows[:, row0 + 1:row0 + L + 1]],
-                    dim=2).reshape(B * L, 2 * H)
+    ext = line_pairs(field, line_row).reshape(B * L, 2 * H)
     sig = fastpath.shift_rows(ext, shifts.reshape(-1),
                               av_len).reshape(B, L, av_len)
     sig = torch.nn.functional.pad(sig, (0, n - av_len))
@@ -133,11 +145,11 @@ def decode_rows_plain(rows, shifts, waveI, waveQ, bright, contrast, *,
         eqd = filters.eq_convolution(stacked, coefs[1])
     else:
         per_chan = [torch.tensor([c[k] for c in coefs], dtype=torch.int32,
-                                 device=rows.device) for k in range(5)]
+                                 device=field.device) for k in range(5)]
         eqd = rowfilters.eq_threeband_rows_plain(stacked, *per_chan)
     oy, oi, oq = eqd[:, :, 0] << 4, eqd[:, :, 1] >> 3, eqd[:, :, 2] >> 3
     if bloom:
-        p = torch.arange(outw, dtype=torch.int32, device=rows.device)
+        p = torch.arange(outw, dtype=torch.int32, device=field.device)
         pos = p * bloom_dx[..., None]                     # (B, L, outw)
         t = (pos >> 12).clamp(min=0)
         ia = t.clamp(max=n - 1).long()
@@ -163,8 +175,8 @@ def decode_rows_plain(rows, shifts, waveI, waveQ, bright, contrast, *,
     return torch.stack([r, g, b], dim=-1).clamp(0, 255).to(torch.uint8)
 
 
-def decode_rows_plain_any_shift(rows, shifts, waveI, waveQ, bright, contrast,
-                                **kw) -> torch.Tensor:
+def decode_rows_plain_any_shift(field, line_row, shifts, waveI, waveQ,
+                                bright, contrast, **kw) -> torch.Tensor:
     """decode_rows_plain for shifts below 0 as well (it takes shifts >= 0),
     the reference the kernel is held to at such shifts: every line becomes
     a frame of its own whose two field rows hold D zeros, D >=
@@ -172,15 +184,16 @@ def decode_rows_plain_any_shift(rows, shifts, waveI, waveQ, bright, contrast,
     The kernel reads 0 before a line's first sample as after its second
     row."""
     B, L = shifts.shape
-    H, row0 = rows.shape[2], kw["row0"]
+    H = field.shape[2]
     D = 2 * max(0, -int(shifts.min()))
-    ext = torch.cat([rows[:, row0:row0 + L], rows[:, row0 + 1:row0 + L + 1]],
-                    dim=2)
-    ext = torch.nn.functional.pad(ext, (D, 0)).reshape(B * L, 2, H + D // 2)
+    ext = torch.nn.functional.pad(line_pairs(field, line_row), (D, 0))
     one = lambda v: v.reshape(B * L, 1, *v.shape[2:])  # noqa: E731
     kw = {n: one(v) if torch.is_tensor(v) else v for n, v in kw.items()}
-    out = decode_rows_plain(ext, one(shifts + D), one(waveI), one(waveQ),
-                            one(bright), one(contrast), **dict(kw, row0=0))
+    out = decode_rows_plain(ext.reshape(B * L, 2, H + D // 2),
+                            torch.zeros((B * L, 1), dtype=torch.int32,
+                                        device=field.device),
+                            one(shifts + D), one(waveI), one(waveQ),
+                            one(bright), one(contrast), **kw)
     return out.reshape(B, L, *out.shape[2:])
 
 
@@ -205,39 +218,38 @@ def bloom_steps(rng: np.random.Generator, B: int, L: int, av_len: int,
                 bloom_lidx=lidx.astype(np.int32))
 
 
-def bloom_line_width(rows: torch.Tensor, xpos_l: torch.Tensor,
-                     max_e: torch.Tensor, *, row0: int,
+def bloom_line_width(field: torch.Tensor, line_row: torch.Tensor,
+                     xpos_l: torch.Tensor, max_e: torch.Tensor, *,
                      av_len: int) -> torch.Tensor:
     """The beam-energy EMA of the bloom build with the line sums that drive
-    it (crt_core.c:512-520).  Line l's sum s is the sum of field row
-    row0 + l over [xpos, xpos + av_len) clipped to the row, plus row
-    row0 + l + 1 over [0, xpos + av_len - H) (the spill); then prev_e =
-    prev_e*123/128 + (((max_e >> 1) - s) << 10) / max_e per line, from
-    16384/8, C truncating divisions in wrapping int32.  rows int8 (B, NR,
-    H), NR >= row0 + L + 1; xpos_l int32 (B, L); max_e int32 (B,).  Returns
-    prev_e int32 (B, L).  A zero max_e divides to -1, as XLA defines it.
-    A CUDA tensor launches csrc/bloom.cu."""
-    if rows.device.type == "cpu":
-        return bloom_line_width_plain(rows, xpos_l, max_e, row0=row0,
+    it (crt_core.c:512-520).  Line l's sum s is the sum of its first field
+    row line_row[l] over [xpos, xpos + av_len) clipped to the row, plus the
+    next row (row 0 after row V - 1) over [0, xpos + av_len - H) (the
+    spill); then prev_e = prev_e*123/128 + (((max_e >> 1) - s) << 10) /
+    max_e per line, from 16384/8, C truncating divisions in wrapping int32.
+    field int8 (B, V, H); line_row int32 (B, L), in [0, V); xpos_l int32
+    (B, L); max_e int32 (B,).  Returns prev_e int32 (B, L).  A zero max_e
+    divides to -1, as XLA defines it.  A CUDA tensor launches
+    csrc/bloom.cu."""
+    if field.device.type == "cpu":
+        return bloom_line_width_plain(field, line_row, xpos_l, max_e,
                                       av_len=av_len)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
-    dev = rows.device
-    B, NR, H = rows.shape
+    dev = field.device
+    B, V, H = field.shape
     L = xpos_l.shape[-1]
-    build.check("rows", rows, torch.int8, (B, NR, H), dev)
+    build.check("field", field, torch.int8, (B, V, H), dev)
+    build.check("line_row", line_row, torch.int32, (B, L), dev)
     build.check("xpos_l", xpos_l, torch.int32, (B, L), dev)
     build.check("max_e", max_e, torch.int32, (B,), dev)
-    if not (B >= 1 and L >= 1 and H >= 1 and 0 <= row0
-            and NR >= row0 + L + 1):
-        raise ValueError(f"bloom_line_width: bad sizes B={B} L={L} NR={NR} "
-                         f"H={H} row0={row0}")
-    if rows.data_ptr() % 16:
-        raise ValueError("bloom_line_width: rows must be 16-byte aligned")
+    if not (B >= 1 and L >= 1 and H >= 1 and V * H < 2**31):
+        raise ValueError(f"bloom_line_width: bad sizes B={B} L={L} V={V} "
+                         f"H={H}")
     out = torch.empty((B, L), dtype=torch.int32, device=dev)
-    build.launch("ntsc_bloom_line_width", dev, rows.data_ptr(),
-                 xpos_l.data_ptr(), max_e.data_ptr(), out.data_ptr(), B, L,
-                 NR, H, row0, av_len)
+    build.launch("ntsc_bloom_line_width", dev, field.data_ptr(),
+                 line_row.data_ptr(), xpos_l.data_ptr(), max_e.data_ptr(),
+                 out.data_ptr(), B, V, L, H, av_len)
     return out
 
 
@@ -260,19 +272,19 @@ def bloom_ema_plain(sums: torch.Tensor, max_e: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def bloom_line_width_plain(rows: torch.Tensor, xpos_l: torch.Tensor,
-                           max_e: torch.Tensor, *, row0: int,
+def bloom_line_width_plain(field: torch.Tensor, line_row: torch.Tensor,
+                           xpos_l: torch.Tensor, max_e: torch.Tensor, *,
                            av_len: int) -> torch.Tensor:
-    """bloom_line_width in plain torch: each line's sum by two masked passes
-    over the rows, as the JAX decoder forms its s_sum (demodulate.py:
-    869-878), then the chain."""
-    L, H = xpos_l.shape[-1], rows.shape[-1]
-    iota = torch.arange(H, dtype=torch.int32, device=rows.device)
+    """bloom_line_width in plain torch: the lines' rows copied out, each
+    line's sum by two masked passes over them, as the JAX decoder forms its
+    s_sum (demodulate.py:869-878), then the chain."""
+    H = field.shape[-1]
+    pair = line_pairs(field, line_row)                    # (B, L, 2H)
+    iota = torch.arange(H, dtype=torch.int32, device=field.device)
     xa = xpos_l[..., None]                                # (B, L, 1)
     in_w = (iota >= xa) & (iota < xa + av_len)
     in_spill = iota < xa + av_len - H
-    sums = (torch.where(in_w, rows[:, row0:row0 + L], 0).sum(
-                2, dtype=torch.int32)
-            + torch.where(in_spill, rows[:, row0 + 1:row0 + L + 1], 0).sum(
+    sums = (torch.where(in_w, pair[..., :H], 0).sum(2, dtype=torch.int32)
+            + torch.where(in_spill, pair[..., H:], 0).sum(
                 2, dtype=torch.int32))
     return bloom_ema_plain(sums, max_e)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ntsc_crt_tpu_torch.ops import fastpath, filters
+from ntsc_crt_tpu_torch.ops.kernels import decode
 from ntsc_crt_tpu_torch.parallel import spatial
 
 
@@ -72,17 +73,16 @@ def scanconv_rows_plain(oy, oi, oq, contrast, *, outw: int) -> torch.Tensor:
     return (r << 16) | (g << 8) | b
 
 
-def demod_rows(rows: torch.Tensor, shifts: torch.Tensor, waveI: torch.Tensor,
-               waveQ: torch.Tensor, bright: torch.Tensor, *, row0: int,
-               av_len: int) -> torch.Tensor:
+def demod_rows(field: torch.Tensor, line_row: torch.Tensor,
+               shifts: torch.Tensor, waveI: torch.Tensor, waveQ: torch.Tensor,
+               bright: torch.Tensor, *, av_len: int) -> torch.Tensor:
     """The EQ's input of every line, as K2 forms it: sig[t] = line l's
-    samples from shifts[l] (continuing into line l + 1), Y = sig + bright,
-    I/Q = sig * wave[t % cc] >> 9 (crt_core.c:538-543).  Returns int32
-    (B, L, 3, av_len)."""
+    samples from shifts[l] (its field row line_row[l] continuing into the
+    next, decode.line_pairs), Y = sig + bright, I/Q = sig * wave[t % cc] >>
+    9 (crt_core.c:538-543).  Returns int32 (B, L, 3, av_len)."""
     B, L = shifts.shape
-    H = rows.shape[2]
-    ext = torch.cat([rows[:, row0:row0 + L], rows[:, row0 + 1:row0 + L + 1]],
-                    dim=2).reshape(B * L, 2 * H)
+    H = field.shape[2]
+    ext = decode.line_pairs(field, line_row).reshape(B * L, 2 * H)
     sig = fastpath.shift_rows(ext, shifts.reshape(-1),
                               av_len).reshape(B, L, av_len)
     wv_i = fastpath.tile_period(waveI, av_len)
@@ -91,19 +91,19 @@ def demod_rows(rows: torch.Tensor, shifts: torch.Tensor, waveI: torch.Tensor,
                         (sig * wv_q) >> 9], dim=2)
 
 
-def decode_rows_unfused(rows: torch.Tensor, shifts: torch.Tensor,
-                        waveI: torch.Tensor, waveQ: torch.Tensor,
-                        bright: torch.Tensor, contrast: torch.Tensor, *,
-                        row0: int, coefs, av_len: int,
+def decode_rows_unfused(field: torch.Tensor, line_row: torch.Tensor,
+                        shifts: torch.Tensor, waveI: torch.Tensor,
+                        waveQ: torch.Tensor, bright: torch.Tensor,
+                        contrast: torch.Tensor, *, coefs, av_len: int,
                         outw: int) -> torch.Tensor:
     """K2's 3-band decode (``decode.decode_rows`` with three EQCoefs) as
     separate passes: the same arguments, the same uint8 (B, L, outw, 3)
     result."""
     B, L = shifts.shape
-    stacked = demod_rows(rows, shifts, waveI, waveQ, bright, row0=row0,
+    stacked = demod_rows(field, line_row, shifts, waveI, waveQ, bright,
                          av_len=av_len)                   # (B, L, 3, AV)
     per_chan = [torch.tensor([c[k] for c in coefs], dtype=torch.int32,
-                             device=rows.device) for k in range(5)]
+                             device=field.device) for k in range(5)]
     eqd = filters.eq_threeband(stacked, *per_chan)
     flat = lambda v: v.reshape(B * L, av_len).contiguous()  # noqa: E731
     packed = spatial.shard_rows_call(

@@ -120,32 +120,28 @@ def shard_rows_call(fn, *args, **static):
     return torch.cat(outs)
 
 
-def shard_lines_call(fn, *args, halo: Optional[dict] = None,
-                     whole: tuple = (), **kw):
+def shard_lines_call(fn, *args, whole: tuple = (), **kw):
     """Run a per-line kernel — one that takes (B, lines, ...) tensors, as
     K1 and K2 do — over the active group: fn(*args, **kw), its output's
     dim 1 the lines.
 
     Each tensor argument (by position, or by name among kw) is per line
     and taken at lines [lo, hi) of each block on dim 1 (K1's sy and carrier
-    tables; K2's shifts, waves, bright, contrast and bloom steps), except
-    those that `whole` names, copied whole to every card (per-slot values,
-    and K1's image, which any line may read), and those that `halo` maps
-    to k, taken at [lo, hi + k) on dim 1, for a kernel whose line l reads
-    rows l .. l + k (K2's rows, k = row0 + 1: line l reads rows l + row0
-    and l + row0 + 1).  Other arguments are host values, passed as they
-    are.  Outside a line_sharding context this is a plain call."""
-    halo = halo or {}
+    tables; K2's line rows, shifts, waves, bright, contrast and bloom
+    steps), except those that `whole` names, copied whole to every card
+    (per-slot values, K1's image and K2's field, which any line may read).
+    Other arguments are host values, passed as they are.  Outside a
+    line_sharding context this is a plain call."""
     named = {**dict(enumerate(args)), **kw}
     tensors = {k: v for k, v in named.items() if torch.is_tensor(v)}
-    per_line = [k for k in tensors if k not in halo and k not in whole]
+    per_line = [k for k in tensors if k not in whole]
     n = tensors[per_line[0]].shape[1]
     group = _CTX.get()
     if group is None or n == 0:
         return fn(*args, **kw)
 
     def block(lo, hi):
-        return {k: v if k in whole else v[:, lo:hi + halo.get(k, 0)]
+        return {k: v if k in whole else v[:, lo:hi]
                 for k, v in tensors.items()}
 
     def call(blocks):

@@ -141,7 +141,36 @@ def test_k1_kernel_matches_plain(cuda, cc, per_row, shape):
 # --- K2 decode_rows (three-band) ---------------------------------------------
 
 
-def k2_inputs(seed, B, L, H, cc, locked=False, row0=1):
+def wrap_rows(B, L, V, first):
+    """Line rows (B, L) int32: line l starts on field row (first + l) mod V."""
+    return np.ascontiguousarray(np.broadcast_to(
+        (first + np.arange(L)) % V, (B, L)), np.int32)
+
+
+def copied_lines(field, line_row, n):
+    """Each line's first n samples copied out of the field, (B, L, n): the
+    row-copy formulation the kernels replaced (rolled4 / rows2), sample x of
+    a line at byte (line_row * H + x) mod (V * H) of its frame."""
+    B, V, H = field.shape
+    flat = (line_row[..., None].astype(np.int64) * H + np.arange(n)) % (V * H)
+    return np.take_along_axis(field.reshape(B, 1, V * H), flat, 2)
+
+
+def as_copied(x, n_rows):
+    """x with its field replaced by the rows its lines start on copied out in
+    order (n_rows of them, a line's next row after it) and line_row by
+    0 .. L - 1: the old rolled-rows formulation, which never wraps."""
+    B, V, H = x["field"].shape
+    L = x["line_row"].shape[1]
+    first = x["line_row"][:, :1]
+    rows = copied_lines(x["field"], first, n_rows * H).reshape(B, n_rows, H)
+    return dict(x, field=rows, line_row=wrap_rows(B, L, n_rows, 0))
+
+
+def k2_inputs(seed, B, L, H, cc, locked=False, row0=1, wrap=False):
+    """Random K2 arguments on a field of row0 + L + 2 rows: line l starts on
+    row row0 + l, or with wrap on row (V - L // 2 + l) mod V, so that line
+    L // 2 - 1 starts on the last row and continues on row 0."""
     rng = np.random.default_rng(seed)
     shifts = rng.integers(0, H, (B, L))
     if locked:
@@ -149,27 +178,29 @@ def k2_inputs(seed, B, L, H, cc, locked=False, row0=1):
     waveI = rng.integers(-60000, 60000, (B, L, cc)).astype(np.int32)
     waveQ = (np.roll(waveI, -3, axis=-1) if cc == 4 else
              rng.integers(-60000, 60000, (B, L, cc)).astype(np.int32))
+    V = row0 + L + 2
     return dict(
-        rows=rng.integers(-127, 128, (B, row0 + L + 2, H)).astype(np.int8),
+        field=rng.integers(-127, 128, (B, V, H)).astype(np.int8),
+        line_row=wrap_rows(B, L, V, V - L // 2 if wrap else row0),
         shifts=shifts.astype(np.int32), waveI=waveI, waveQ=waveQ,
         bright=rng.integers(-20, 20, (B, L)).astype(np.int32),
         contrast=rng.integers(150, 200, (B, L)).astype(np.int32))
 
 
-def k2_jax(x, row0, av_len, outw):
-    """decode_fused_rows (interpret) fed the line rows as the two planes
-    ext / ext_hi, shifts up to H - 1."""
+def k2_jax(x, av_len, outw):
+    """decode_fused_rows (interpret) fed the lines' two rows, copied out
+    of the field, as the two planes ext / ext_hi, shifts up to H - 1."""
     import jax.numpy as jnp
     from ntsc_crt_tpu.ops.pallas import decode_fused as df
     B, L = x["shifts"].shape
-    H = x["rows"].shape[2]
+    H = x["field"].shape[2]
     flat = lambda v: jnp.asarray(v.reshape((B * L,) + v.shape[2:]))
-    ext = x["rows"][:, row0:row0 + L]
-    ext_hi = x["rows"][:, row0 + 1:row0 + L + 1]
+    pair = copied_lines(x["field"], x["line_row"], 2 * H)
     r8, g8, b8 = df.decode_fused_rows(
-        flat(ext), flat(x["shifts"]), flat(x["waveI"]), flat(x["waveQ"]),
-        flat(x["bright"]), flat(x["contrast"]), ext_hi=flat(ext_hi),
-        outw=outw, av_len=av_len, max_shift=H - 1,
+        flat(pair[..., :H]), flat(x["shifts"]), flat(x["waveI"]),
+        flat(x["waveQ"]), flat(x["bright"]), flat(x["contrast"]),
+        ext_hi=flat(pair[..., H:]), outw=outw, av_len=av_len,
+        max_shift=H - 1,
         coefs=tuple(tuple(c) for c in dem._eq_coefs(NTSC)), interpret=True)
     rgb = np.stack([np.asarray(v) for v in (r8, g8, b8)], axis=-1)
     return rgb.reshape(B, L, outw, 3)
@@ -179,30 +210,25 @@ def k2_jax(x, row0, av_len, outw):
 def test_k2_plain_matches_jax_kernel(locked):
     """cc = 4 only: each JAX interpret compile of this kernel costs about a
     minute; 5-sample waves differ only in the Q table the caller passes."""
-    row0, av_len, outw = 1, 128, 48
-    x = k2_inputs(7, B=2, L=24, H=160, cc=4, locked=locked, row0=row0)
-    got = decode.decode_rows(**to_torch(x), row0=row0,
-                             coefs=dem._eq_coefs(NTSC), av_len=av_len,
-                             outw=outw)
-    same(got, k2_jax(x, row0, av_len, outw))
+    av_len, outw = 128, 48
+    x = k2_inputs(7, B=2, L=24, H=160, cc=4, locked=locked, row0=1)
+    got = decode.decode_rows(**to_torch(x), coefs=dem._eq_coefs(NTSC),
+                             av_len=av_len, outw=outw)
+    same(got, k2_jax(x, av_len, outw))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", ["full", "ragged"])
-@pytest.mark.parametrize("cc,mode", [
-    (4, "threeband"), (5, "threeband"), (4, "conv4"), (4, "conv5"),
-    (4, "conv6"), (4, "conv7"), (4, "bloom"), (5, "bloom")])
-def test_k2_kernel_matches_plain(cuda, cc, mode, shape):
-    """Every mode at NTSC's shape and at a ragged one: 111 rows (the last
-    warp's lanes partly idle), outw 641 or 37 (not a whole number of
-    32-pixel tiles, nor of 4-byte words), shifts from before 0 to past 2H
-    (held to decode_rows_plain_any_shift, as the plain version takes
-    shifts >= 0), bloom steps of decode.bloom_steps."""
+def k2_case(shape, cc, mode, wrap=False):
+    """K2's arguments and keywords for the GPU cases: every mode at NTSC's
+    shape and at a ragged one: 111 rows (the last warp's lanes partly
+    idle), outw 641 or 37 (not a whole number of 32-pixel tiles, nor of
+    4-byte words), shifts from before 0 to past 2H, bloom steps of
+    decode.bloom_steps; with wrap, lines that continue from the field's
+    last row on its row 0."""
     if shape == "full":
         B, L, H, av_len, outw = 2, NTSC.lines, NTSC.hres, NTSC.av_len, 640
     else:
         B, L, H, av_len, outw = 3, 37, 200, 150, 641 if cc == 4 else 37
-    x = k2_inputs(cc + len(mode), B=B, L=L, H=H, cc=cc, row0=3)
+    x = k2_inputs(cc + len(mode), B=B, L=L, H=H, cc=cc, row0=3, wrap=wrap)
     rng = np.random.default_rng(len(mode))
     if shape == "ragged":
         x["shifts"] = rng.integers(-40, 2 * H - 20, (B, L)).astype(np.int32)
@@ -210,13 +236,41 @@ def test_k2_kernel_matches_plain(cuda, cc, mode, shape):
         x.update(decode.bloom_steps(rng, B, L, av_len, outw, cc))
     coefs = (("conv", int(mode[-1])) if mode.startswith("conv") else
              dem._eq_coefs(NTSC))
-    kw = dict(row0=3, coefs=coefs, av_len=av_len, outw=outw)
-    want = decode.decode_rows_plain_any_shift(**to_torch(x), **kw)
-    counter = {"bloom": "decode_rows_bloom"}.get(
+    return x, dict(coefs=coefs, av_len=av_len, outw=outw)
+
+
+def k2_counter(mode):
+    return {"bloom": "decode_rows_bloom"}.get(
         mode, "decode_rows_conv" if mode.startswith("conv") else "decode_rows")
-    n = build.LAUNCHES[counter]
+
+
+K2_MODES = [(4, "threeband"), (5, "threeband"), (4, "conv4"), (4, "conv5"),
+            (4, "conv6"), (4, "conv7"), (4, "bloom"), (5, "bloom")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["full", "ragged"])
+@pytest.mark.parametrize("cc,mode", K2_MODES)
+def test_k2_kernel_matches_plain(cuda, cc, mode, shape):
+    """k2_case's inputs, held to decode_rows_plain_any_shift, as the plain
+    version takes shifts >= 0."""
+    x, kw = k2_case(shape, cc, mode)
+    want = decode.decode_rows_plain_any_shift(**to_torch(x), **kw)
+    n = build.LAUNCHES[k2_counter(mode)]
     same(decode.decode_rows(**to_torch(x, cuda), **kw), want)
-    assert build.LAUNCHES[counter] == n + 1
+    assert build.LAUNCHES[k2_counter(mode)] == n + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["full", "ragged"])
+@pytest.mark.parametrize("cc,mode", K2_MODES)
+def test_k2_kernel_matches_plain_on_wrapping_lines(cuda, cc, mode, shape):
+    """The same with lines that start on the field's last row and continue
+    on its row 0, held to the plain version of the rows copied out."""
+    x, kw = k2_case(shape, cc, mode, wrap=True)
+    want = decode.decode_rows_plain_any_shift(
+        **to_torch(as_copied(x, x["line_row"].shape[1] + 1)), **kw)
+    same(decode.decode_rows(**to_torch(x, cuda), **kw), want)
 
 
 @pytest.mark.parametrize("mode", ["threeband", "conv7", "bloom"])
@@ -230,70 +284,109 @@ def test_k2_plain_any_shift_is_the_plain_version_from_shift_0(mode):
     x["shifts"] = rng.integers(0, 2 * H + 5, (B, L)).astype(np.int32)
     if mode == "bloom":
         x.update(decode.bloom_steps(rng, B, L, av_len, outw, 4))
-    kw = dict(row0=2, av_len=av_len, outw=outw,
+    kw = dict(av_len=av_len, outw=outw,
               coefs=("conv", 7) if mode == "conv7" else dem._eq_coefs(NTSC))
     same(decode.decode_rows_plain_any_shift(**to_torch(x), **kw),
          decode.decode_rows_plain(**to_torch(x), **kw))
 
 
+@pytest.mark.parametrize("mode", ["threeband", "conv7", "bloom"])
+def test_k2_plain_reads_wrapping_lines_as_the_row_copy(mode):
+    """Lines that start on the field's last row continue on its row 0: the
+    decode in place equals the decode of the lines' rows copied out in
+    order (the old rolled rows), shifts from 0 to past 2H."""
+    B, L, H, av_len, outw = 2, 9, 60, 50, 37
+    x = k2_inputs(len(mode), B=B, L=L, H=H, cc=4, row0=2, wrap=True)
+    assert (x["line_row"] == x["field"].shape[1] - 1).any()
+    rng = np.random.default_rng(len(mode))
+    x["shifts"] = rng.integers(0, 2 * H + 5, (B, L)).astype(np.int32)
+    if mode == "bloom":
+        x.update(decode.bloom_steps(rng, B, L, av_len, outw, 4))
+    kw = dict(av_len=av_len, outw=outw,
+              coefs=("conv", 7) if mode == "conv7" else dem._eq_coefs(NTSC))
+    same(decode.decode_rows(**to_torch(x), **kw),
+         decode.decode_rows(**to_torch(as_copied(x, L + 1)), **kw))
+
+
 # --- K3 hsync_chase ----------------------------------------------------------
 
-K3 = dict(W=8, c0=20, thresh=4 * -40, H=300)
+K3 = dict(W=8, c0=20, thresh=4 * -40, pad=212)
+K3_H = 300
 
 
-def k3_inputs(seed, B, L=21, HP=512, locked=True):
-    """Line rows with a -40 sync pulse near a jittering edge, plus noise;
-    `locked` starts the estimate at the edge, else anywhere."""
+def k3_inputs(seed, B, L=21, locked=True, wrap=False):
+    """A field of L + 2 rows of K3_H samples, each with a -40 sync pulse
+    near a jittering edge, plus noise; line l on row l + 1 (with wrap, on
+    rows that pass the last row to row 0); `locked` starts the estimate at
+    the edge, else anywhere."""
     rng = np.random.default_rng(seed)
-    rows2 = rng.integers(-30, 60, (B, L, HP))
-    edge = 100 + rng.integers(-5, 6, (B, L))
-    cols = np.arange(HP)
+    V, H = L + 2, K3_H
+    field = rng.integers(-30, 60, (B, V, H))
+    edge = 100 + rng.integers(-5, 6, (B, V))
+    cols = np.arange(H)
     pulse = (cols >= edge[..., None] + K3["c0"]) \
         & (cols < edge[..., None] + K3["c0"] + 40)
-    rows2 = np.where(pulse, -40 + rng.integers(-3, 4, (B, L, HP)), rows2)
-    h0 = (np.full(B, 100 - K3["W"]) if locked else
-          rng.integers(0, K3["H"], B))
-    return dict(rows2=rows2.astype(np.int8),
+    field = np.where(pulse, -40 + rng.integers(-3, 4, (B, V, H)), field)
+    h0 = (np.full(B, 100 - K3["W"]) if locked else rng.integers(0, H, B))
+    return dict(field=field.astype(np.int8),
+                line_row=wrap_rows(B, L, V, V - L // 2 if wrap else 1),
                 active_l=rng.random((B, L)) > 0.2,
                 hsync0=h0.astype(np.int32))
 
 
-# (L, HP, H, W, c0) of rows whose estimate walks across H both ways: lines
-# all at -100 cross at t = 0 (a step of -W), lines at +100 never cross
+# (L, pad, H, W, c0) of fields whose estimate walks across H both ways:
+# rows all at -100 cross at t = 0 (a step of -W), rows at +100 never cross
 # (t = 2W, a step of +W), the rest noise with a pulse anywhere; a run of
-# inactive lines.  Inside the JAX kernel's contract (c0 >= 0, windows inside
-# [0, HP), HP a multiple of 128) unless noted.
+# inactive lines.  A line's H + pad samples run on through the rows after
+# it.  Inside the JAX kernel's contract (c0 >= 0, windows inside
+# [0, H + pad), H + pad a multiple of 128) unless noted.
 K3_EDGES = {
-    "wrap-W8": (60, 128, 40, 8, 0),
-    "wrap-W6": (60, 128, 40, 6, 0),
-    "ends-at-HP": (40, 128, 104, 8, 9),      # H - 1 + c0 + 2W == HP
-    # outside it: windows from below 0, and past HP
-    "below-0": (50, 48, 40, 8, -16),
-    "past-HP": (70, 30, 60, 6, -3),
-    "W16": (33, 200, 150, 16, 5),
+    "wrap-W8": (60, 88, 40, 8, 0),
+    "wrap-W6": (60, 88, 40, 6, 0),
+    "ends-at-HP": (40, 24, 104, 8, 9),       # H - 1 + c0 + 2W == H + pad
+    # outside it: windows from below 0, and past H + pad
+    "below-0": (50, 8, 40, 8, -16),
+    "past-HP": (70, 0, 60, 6, -3),
+    "W16": (33, 50, 150, 16, 5),
     # the kernel's one-lane path: estimates from outside [0, H), W >= H
-    "start-outside-H": (50, 64, 40, 8, 0),
-    "W-past-H": (40, 64, 10, 12, 0),
+    "start-outside-H": (50, 24, 40, 8, 0),
+    "W-past-H": (40, 54, 10, 12, 0),
 }
 K3_OUTSIDE_JAX = ("below-0", "past-HP", "W16", "start-outside-H", "W-past-H")
 
 
-def k3_edge_inputs(seed, B, case):
-    L, HP, H, W, c0 = K3_EDGES[case]
+def k3_edge_inputs(seed, B, case, wrap=False):
+    """A field of L + 8 rows for K3_EDGES[case]; line l on row l + 1, or
+    with wrap on rows that pass the last row to row 0."""
+    L, pad, H, W, c0 = K3_EDGES[case]
+    V = L + 8
     rng = np.random.default_rng(seed)
-    kind = rng.integers(0, 4, (B, L))[..., None]
-    cols = np.arange(HP)
-    edge = rng.integers(0, HP, (B, L))[..., None]
-    rows2 = rng.integers(-30, 60, (B, L, HP))
-    rows2 = np.where((kind == 3) & (cols >= edge) & (cols < edge + 40), -40,
-                     rows2)
-    rows2 = np.where(kind == 1, -100, np.where(kind == 2, 100, rows2))
+    kind = rng.integers(0, 4, (B, V))[..., None]
+    cols = np.arange(H)
+    edge = rng.integers(0, H, (B, V))[..., None]
+    field = rng.integers(-30, 60, (B, V, H))
+    field = np.where((kind == 3) & (cols >= edge) & (cols < edge + 40), -40,
+                     field)
+    field = np.where(kind == 1, -100, np.where(kind == 2, 100, field))
     act = rng.random((B, L)) > 0.2
     act[:, 5:15] = False
     far = 3 * H if case == "start-outside-H" else 0
-    return (dict(rows2=rows2.astype(np.int8), active_l=act,
+    return (dict(field=field.astype(np.int8),
+                 line_row=wrap_rows(B, L, V, V - L // 2 if wrap else 1),
+                 active_l=act,
                  hsync0=rng.integers(-far, H + far, B).astype(np.int32)),
-            dict(W=W, c0=c0, thresh=4 * -40, H=H))
+            dict(W=W, c0=c0, thresh=4 * -40, pad=pad))
+
+
+def k3_copied(x, k):
+    """The chase's arguments in the row-copy formulation the JAX kernel
+    and k3_scalar take: rows2 (B, L, H + pad) copied out of the field, and
+    H as a keyword."""
+    H = x["field"].shape[2]
+    rows2 = copied_lines(x["field"], x["line_row"], H + k["pad"])
+    kw = {n: v for n, v in k.items() if n != "pad"}
+    return (dict(rows2=rows2, active_l=x["active_l"], hsync0=x["hsync0"]),
+            dict(kw, H=H))
 
 
 def k3_scalar(rows2, active_l, hsync0, *, W, c0, thresh, H):
@@ -330,20 +423,36 @@ def test_k3_plain_matches_jax_kernel(case):
     else:
         x, k = k3_edge_inputs(len(case), 3, case)
     got = hsync.hsync_chase(**to_torch(x), **k)
-    want = hsk.hsync_chase(*(jnp.asarray(x[n]) for n in
+    r, kj = k3_copied(x, k)
+    want = hsk.hsync_chase(*(jnp.asarray(r[n]) for n in
                              ("rows2", "active_l", "hsync0")),
-                           interpret=True, **k)
+                           interpret=True, **kj)
     same(got, want)
 
 
 @pytest.mark.parametrize("case", K3_OUTSIDE_JAX)
 def test_k3_plain_matches_scalar_loop_outside_the_jax_contract(case):
-    """Windows from below 0 or past HP (the JAX kernel's caller asserts them
-    away, ntsc_crt_tpu/models/demodulate.py:393-395), W = 16, estimates that
-    start outside [0, H) and W >= H: the plain version against the
-    reference loop, missing samples read as 0."""
+    """Windows from below 0 or past H + pad (the JAX kernel's caller asserts
+    them away, ntsc_crt_tpu/models/demodulate.py:393-395), W = 16,
+    estimates that start outside [0, H) and W >= H: the plain version
+    against the reference loop on the lines copied out, missing samples
+    read as 0."""
     x, k = k3_edge_inputs(len(case), 3, case)
-    same(hsync.hsync_chase(**to_torch(x), **k), k3_scalar(**x, **k))
+    r, kj = k3_copied(x, k)
+    same(hsync.hsync_chase(**to_torch(x), **k), k3_scalar(**r, **kj))
+
+
+@pytest.mark.parametrize("case", ["ntsc"] + list(K3_EDGES))
+def test_k3_plain_reads_wrapping_lines_as_the_row_copy(case):
+    """Lines that start on the field's last row continue on its row 0: the
+    chase in place equals the reference loop on the lines copied out."""
+    if case == "ntsc":
+        x, k = k3_inputs(4, 3, locked=False, wrap=True), K3
+    else:
+        x, k = k3_edge_inputs(len(case), 3, case, wrap=True)
+    assert (x["line_row"] == x["field"].shape[1] - 1).any()
+    r, kj = k3_copied(x, k)
+    same(hsync.hsync_chase(**to_torch(x), **k), k3_scalar(**r, **kj))
 
 
 @pytest.mark.parametrize("W", [0, hsync.MAX_W + 1])
@@ -359,27 +468,72 @@ def test_k3_kernel_path_refuses_w_past_its_limit(W):
 
 @pytest.mark.gpu
 def test_k3_kernel_path_refuses_unaligned_rows(cuda):
-    """The kernel copies aligned words of the rows: rows2 must start on a
+    """The kernel copies aligned words of the field: it must start on a
     4-byte boundary."""
     x = to_torch(k3_inputs(0, B=1), cuda)
-    flat = torch.empty(x["rows2"].numel() + 1, dtype=torch.int8, device=cuda)
-    rows2 = flat[1:].view(x["rows2"].shape)
+    flat = torch.empty(x["field"].numel() + 1, dtype=torch.int8, device=cuda)
+    field = flat[1:].view(x["field"].shape)
     with pytest.raises(ValueError, match="4-byte"):
-        hsync.hsync_chase(rows2, x["active_l"], x["hsync0"], **K3)
+        hsync.hsync_chase(field, x["line_row"], x["active_l"], x["hsync0"],
+                          **K3)
+
+
+def k3_case(case, B, wrap=False):
+    if case == "ntsc":
+        return k3_inputs(B, B, L=NTSC.lines, locked=False, wrap=wrap), K3
+    return k3_edge_inputs(B, B, case, wrap=wrap)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [1, 5, 64, 512])   # 5: a part-full block
 @pytest.mark.parametrize("case", ["ntsc"] + list(K3_EDGES))
 def test_k3_kernel_matches_plain(cuda, case, B):
-    if case == "ntsc":
-        x, k = k3_inputs(B, B, L=NTSC.lines, locked=False), K3
-    else:
-        x, k = k3_edge_inputs(B, B, case)
+    x, k = k3_case(case, B)
     want = hsync.hsync_chase(**to_torch(x), **k)
     n = build.LAUNCHES["hsync_chase"]
     same(hsync.hsync_chase(**to_torch(x, cuda), **k), want)
     assert build.LAUNCHES["hsync_chase"] == n + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 5, 64])
+@pytest.mark.parametrize("case", ["ntsc"] + list(K3_EDGES))
+def test_k3_kernel_matches_plain_on_wrapping_lines(cuda, case, B):
+    """Lines that pass the field's last row to row 0, the wrapping line
+    among those whose span the kernel stages lines ahead."""
+    x, k = k3_case(case, B, wrap=True)
+    same(hsync.hsync_chase(**to_torch(x, cuda), **k),
+         hsync.hsync_chase(**to_torch(x), **k))
+
+
+# --- the burst gather --------------------------------------------------------
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+def test_burst_gather_reads_lines_as_the_row_copy(wrap):
+    """The line scan's burst gather (fastpath.line_samples at NTSC's burst
+    windows, from every hsync in [0, H)) reads in place what it read from
+    the padded lines copied out (rows2), on lines that stay inside the field
+    and on lines that pass its last row to row 0."""
+    from ntsc_crt_tpu_torch.ops import fastpath
+    cfg = NTSC
+    B, L, V, H = 3, cfg.lines, cfg.vres, cfg.hres
+    rng = np.random.default_rng(wrap)
+    field = rng.integers(-128, 128, (B, V, H)).astype(np.int8)
+    line_row = wrap_rows(B, L, V, V - L // 2 if wrap else 1)
+    hs = rng.integers(0, H, (B, L))
+    bidx = ((hs & ~3) + cfg.cb_beg)[..., None] + np.arange(cfg.burst_len)
+    pad = cfg.cb_beg + cfg.burst_len
+    want = np.take_along_axis(copied_lines(field, line_row, H + pad), bidx, 2)
+    got = fastpath.line_samples(torch.as_tensor(field),
+                                torch.as_tensor(line_row),
+                                torch.as_tensor(bidx))
+    same(got, want)
+    # as the line scan calls it: each line's window start as the offset
+    got = fastpath.line_samples(
+        torch.as_tensor(field), torch.as_tensor(line_row),
+        torch.arange(cfg.burst_len), offset=torch.as_tensor(bidx[..., 0]))
+    same(got, want)
 
 
 # --- K4 ccf_ema --------------------------------------------------------------
@@ -608,8 +762,7 @@ def test_unfused_chain_kernels_equal_k2_kernel(cuda, cc):
     """K8 then K9 against K2, kernel against kernel, at NTSC's width."""
     x = to_torch(k2_inputs(cc + 10, B=2, L=NTSC.lines, H=NTSC.hres, cc=cc,
                            row0=3), cuda)
-    kw = dict(row0=3, coefs=dem._eq_coefs(NTSC), av_len=NTSC.av_len,
-              outw=640)
+    kw = dict(coefs=dem._eq_coefs(NTSC), av_len=NTSC.av_len, outw=640)
     n = (build.LAUNCHES["eq_threeband_rows"], build.LAUNCHES["scanconv_rows"])
     same(scanconv.decode_rows_unfused(**x, **kw), decode.decode_rows(**x, **kw))
     assert (build.LAUNCHES["eq_threeband_rows"],
@@ -647,7 +800,7 @@ def test_non_cpu_tensors_never_take_the_plain_version(name):
     the kernel path, which refuses a tensor that is not on a CUDA device
     before it builds or launches anything."""
     from ntsc_crt_tpu_torch.ops.kernels import place
-    k2 = dict(row0=1, av_len=64, outw=48)
+    k2 = dict(av_len=64, outw=48)
     call = {
         "encode_rows": lambda x: encode.encode_rows(
             **x, coefs=IIR, xo_mod=0, destw=32),
@@ -662,7 +815,7 @@ def test_non_cpu_tensors_never_take_the_plain_version(name):
         "decode_rows_bloom": lambda x: decode.decode_rows(
             **x, coefs=dem._eq_coefs(NTSC), **k2),
         "bloom_line_width": lambda x: decode.bloom_line_width(
-            **x, row0=0, av_len=5),
+            **x, av_len=5),
         "place_rows_uniform": lambda x: place.place_rows_uniform(
             **x, blend=True, scanlines=1, ratio=2, fp=1),
         "iir_lowpass_rows": lambda x: rowfilters.iir_lowpass_rows(
@@ -682,7 +835,8 @@ def test_non_cpu_tensors_never_take_the_plain_version(name):
          "decode_rows_conv": lambda: k2_inputs(0, B=1, L=4, H=160, cc=4),
          "decode_rows_bloom": k2_bloom_inputs,
          "bloom_line_width": lambda: dict(
-             rows=np.zeros((2, 9, 16), np.int8),
+             field=np.zeros((2, 9, 16), np.int8),
+             line_row=np.zeros((2, 8), np.int32),
              xpos_l=np.zeros((2, 8), np.int32), max_e=np.ones(2, np.int32)),
          "place_rows_uniform": lambda: dict(
              rgb=np.zeros((2, 4, 8, 3), np.uint8),

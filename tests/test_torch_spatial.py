@@ -136,14 +136,14 @@ def test_inspect_splits_k1_k2_only(records, monkeypatch):
     row's cards in order; K3, K4 and the row placement see every line."""
     whole_lines = []
 
-    def spy(mod, name):
+    def spy(mod, name, lines_arg=0):
         fn = getattr(mod, name)
 
         def run(*a, **k):
-            whole_lines.append((name, a[0].shape[1]))
+            whole_lines.append((name, a[lines_arg].shape[1]))
             return fn(*a, **k)
         monkeypatch.setattr(mod, name, run)
-    spy(hsync, "hsync_chase")
+    spy(hsync, "hsync_chase", 1)        # (field, line_row, ...)
     spy(ccf, "ccf_ema")
     spy(dem, "_place_rows")
     m = mesh.make_mesh(1, 3, cpus(3))
@@ -160,9 +160,15 @@ def test_inspect_splits_k1_k2_only(records, monkeypatch):
 
 
 def k2_args(rng, B, L, H, av, cc=4):
-    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32))  # noqa: E731
+    """K2's arguments on a field of L + 4 rows whose lines start on rows
+    that pass its last row to row 0."""
+    i32 = lambda a: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(a, np.int32))
+    V = L + 4
     return dict(
-        rows=torch.as_tensor(rng.randint(-128, 128, (B, L + 4, H), np.int8)),
+        field=torch.as_tensor(rng.randint(-128, 128, (B, V, H), np.int8)),
+        line_row=i32(np.broadcast_to((V - L // 2 + np.arange(L)) % V,
+                                     (B, L))),
         shifts=i32(rng.randint(0, H - av, (B, L))),
         waveI=i32(rng.randint(-400, 400, (B, L, cc))),
         waveQ=i32(rng.randint(-400, 400, (B, L, cc))),
@@ -185,8 +191,8 @@ def test_line_and_row_helpers_at_ragged_counts(L, n, records):
 
     def k2(bl):
         return spatial.shard_lines_call(
-            decode.decode_rows, *a.values(), halo={0: 4}, row0=3,
-            coefs=coefs, av_len=av, outw=outw, **bl)
+            decode.decode_rows, *a.values(), whole=(0,), coefs=coefs,
+            av_len=av, outw=outw, **bl)
 
     img = torch.as_tensor(rng.randint(0, 256, (B, 9, 16, 3), np.uint8))
     sy = torch.as_tensor(rng.randint(0, 9, (B, L)).astype(np.int32))
@@ -202,10 +208,8 @@ def test_line_and_row_helpers_at_ragged_counts(L, n, records):
     def ops():
         return (filters.iir_lowpass(x, 700),
                 filters.eq_threeband(x, *[c[0] for c in zip(*coefs)]),
-                scanconv.decode_rows_unfused(
-                    a["rows"], a["shifts"], a["waveI"], a["waveQ"],
-                    a["bright"], a["contrast"], row0=3, coefs=coefs,
-                    av_len=av, outw=outw))
+                scanconv.decode_rows_unfused(*a.values(), coefs=coefs,
+                                             av_len=av, outw=outw))
 
     want = [k2({}), k2(bloom), k1(), *ops()]
     assert not records
@@ -364,7 +368,7 @@ def test_each_shard_launches_on_its_card(cards, records, monkeypatch):
     assert by("ntsc_eq_threeband_rows") == order
     a = k2_args(np.random.RandomState(6), 1, 240, 910, 753)
     a = {k: v.to(cards[0]) for k, v in a.items()}
-    kw = dict(row0=3, coefs=dem._eq_coefs(NTSC), av_len=753, outw=640)
+    kw = dict(coefs=dem._eq_coefs(NTSC), av_len=753, outw=640)
     want = scanconv.decode_rows_unfused(*a.values(), **kw)
     launches.clear()
     with spatial.line_sharding(cards):

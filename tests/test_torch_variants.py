@@ -142,14 +142,32 @@ def test_golden_variant(tag, kw):
 # --- K2's conv and bloom modes ----------------------------------------------
 
 
-def k2_inputs(seed, B, L, H, av_len, outw, bloom=False, row0=1):
-    """Random rows and per-line tables; with bloom, per-line pixel steps
-    near the drawn width and EQ starts as the decoder makes them (the
-    shifts then reach past H - 1)."""
+def wrap_rows(B, L, V, first):
+    """Line rows (B, L) int32: line l starts on field row (first + l) mod V."""
+    return np.ascontiguousarray(np.broadcast_to(
+        (first + np.arange(L)) % V, (B, L)), np.int32)
+
+
+def copied_rows(field, first, n):
+    """Each frame's n field rows from row first[b] on, copied out in order
+    (mod V): the rolled rows the kernels read before they read the field in
+    place.  field (B, V, H); first (B,)."""
+    V = field.shape[1]
+    idx = (first[:, None] + np.arange(n)) % V
+    return np.take_along_axis(field, idx[..., None], 1)
+
+
+def k2_inputs(seed, B, L, H, av_len, outw, bloom=False, row0=1, wrap=False):
+    """Random field rows and per-line tables, line l on field row row0 + l
+    (with wrap, on rows that pass the last row to row 0); with bloom,
+    per-line pixel steps near the drawn width and EQ starts as the decoder
+    makes them (the shifts then reach past H - 1)."""
     rng = np.random.default_rng(seed)
     waveI = rng.integers(-60000, 60000, (B, L, 4)).astype(np.int32)
+    V = row0 + L + 2
     x = dict(
-        rows=rng.integers(-127, 128, (B, row0 + L + 2, H)).astype(np.int8),
+        field=rng.integers(-127, 128, (B, V, H)).astype(np.int8),
+        line_row=wrap_rows(B, L, V, V - L // 2 if wrap else row0),
         shifts=rng.integers(0, H, (B, L)).astype(np.int32),
         waveI=waveI, waveQ=np.roll(waveI, -3, axis=-1),
         bright=rng.integers(-20, 20, (B, L)).astype(np.int32),
@@ -163,19 +181,28 @@ def k2_inputs(seed, B, L, H, av_len, outw, bloom=False, row0=1):
     return x
 
 
-def k2_jax(x, row0, av_len, outw, coefs, max_shift):
-    """decode_fused_rows (interpret) fed the line rows as the two planes
-    ext / ext_hi."""
+def as_copied(x):
+    """x in the old formulation: its lines' rows copied out in order and
+    line l on copied row l (consecutive line rows only)."""
+    B, L = x["line_row"].shape
+    rows = copied_rows(x["field"], x["line_row"][:, 0], L + 1)
+    return dict(x, field=rows, line_row=wrap_rows(B, L, L + 1, 0))
+
+
+def k2_jax(x, av_len, outw, coefs, max_shift):
+    """decode_fused_rows (interpret) fed the lines' rows, copied out of the
+    field, as the two planes ext / ext_hi."""
     import jax.numpy as jnp
     from ntsc_crt_tpu.ops.pallas import decode_fused as df
     B, L = x["shifts"].shape
     flat = lambda v: jnp.asarray(v.reshape((B * L,) + v.shape[2:]))  # noqa
     bkw = ({} if "bloom_dx" not in x else
            dict(bloom_dx=flat(x["bloom_dx"]), bloom_lidx=flat(x["bloom_lidx"])))
+    rows = as_copied(x)["field"]
     r8, g8, b8 = df.decode_fused_rows(
-        flat(x["rows"][:, row0:row0 + L]), flat(x["shifts"]),
+        flat(rows[:, :L]), flat(x["shifts"]),
         flat(x["waveI"]), flat(x["waveQ"]), flat(x["bright"]),
-        flat(x["contrast"]), ext_hi=flat(x["rows"][:, row0 + 1:row0 + L + 1]),
+        flat(x["contrast"]), ext_hi=flat(rows[:, 1:L + 1]),
         outw=outw, av_len=av_len, max_shift=max_shift, coefs=coefs,
         interpret=True, **bkw)
     rgb = np.stack([np.asarray(v) for v in (r8, g8, b8)], axis=-1)
@@ -187,14 +214,13 @@ def test_k2_mode_plain_matches_jax_kernel(mode):
     """One small case each: conv mode with the 6-tap FIR; bloom mode with
     the 3-band EQ, compared on every pixel (those past the drawn line
     included: the plain version keeps the TPU kernel's values there)."""
-    row0, H, av_len, outw = 1, 96, 80, 24
+    H, av_len, outw = 96, 80, 24
     bloom = mode == "bloom"
     x = k2_inputs(5, B=1, L=12, H=H, av_len=av_len, outw=outw, bloom=bloom)
     coefs = (("conv", 6) if not bloom else
              tuple(tuple(c) for c in dem._eq_coefs(NTSC)))
-    got = decode.decode_rows(**t(x), row0=row0, coefs=coefs, av_len=av_len,
-                             outw=outw)
-    same(got, k2_jax(x, row0, av_len, outw, coefs, max_shift=H - 1 + 12))
+    got = decode.decode_rows(**t(x), coefs=coefs, av_len=av_len, outw=outw)
+    same(got, k2_jax(x, av_len, outw, coefs, max_shift=H - 1 + 12))
 
 
 @pytest.mark.parametrize("taps", [4, 5, 6, 7])
@@ -206,22 +232,39 @@ def test_eq_convolution_matches_jax(taps):
          jfilters.eq_convolution(jnp.asarray(s, jnp.int32), taps))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["conv4", "conv5", "conv6", "conv7",
-                                  "bloom", "bloom-conv7"])
-def test_k2_mode_kernel_matches_plain(cuda, mode):
+K2_VARIANTS = ["conv4", "conv5", "conv6", "conv7", "bloom", "bloom-conv7"]
+
+
+def k2_variant(mode, wrap=False):
     av_len, outw = NTSC.av_len, 640
     bloom = mode.startswith("bloom")
     x = k2_inputs(len(mode), B=2, L=NTSC.lines, H=NTSC.hres, av_len=av_len,
-                  outw=outw, bloom=bloom, row0=3)
+                  outw=outw, bloom=bloom, row0=3, wrap=wrap)
     coefs = (("conv", int(mode[-1])) if "conv" in mode else
              dem._eq_coefs(NTSC))
-    kw = dict(row0=3, coefs=coefs, av_len=av_len, outw=outw)
+    return x, dict(coefs=coefs, av_len=av_len, outw=outw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", K2_VARIANTS)
+def test_k2_mode_kernel_matches_plain(cuda, mode):
+    x, kw = k2_variant(mode)
     want = decode.decode_rows(**t(x), **kw)
-    counter = ("decode_rows_bloom" if bloom else "decode_rows_conv")
+    counter = ("decode_rows_bloom" if mode.startswith("bloom")
+               else "decode_rows_conv")
     n = build.LAUNCHES[counter]
     same(decode.decode_rows(**t(x, cuda), **kw), want)
     assert build.LAUNCHES[counter] == n + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", K2_VARIANTS)
+def test_k2_mode_kernel_matches_plain_on_wrapping_lines(cuda, mode):
+    """Lines that start on the field's last row continue on its row 0, held
+    to the plain version of the rows copied out."""
+    x, kw = k2_variant(mode, wrap=True)
+    same(decode.decode_rows(**t(x, cuda), **kw),
+         decode.decode_rows(**t(as_copied(x)), **kw))
 
 
 @pytest.mark.gpu
@@ -232,7 +275,7 @@ def test_k2_bloom_kernel_defined_for_any_step(cuda):
                   bloom=True, row0=3)
     rng = np.random.default_rng(0)
     x["bloom_dx"] = rng.integers(-2**31, 2**31, (1, 8)).astype(np.int32)
-    kw = dict(row0=3, coefs=dem._eq_coefs(NTSC), av_len=NTSC.av_len, outw=64)
+    kw = dict(coefs=dem._eq_coefs(NTSC), av_len=NTSC.av_len, outw=64)
     same(decode.decode_rows(**t(x, cuda), **kw), decode.decode_rows(**t(x), **kw))
 
 
@@ -272,10 +315,11 @@ def test_bloom_line_width_plain_matches_jax_chain():
 XPOS_KINDS = ("inside", "below 0", "spill", "past 2H", "any")
 
 
-def bloom_inputs(seed, B, L, H, AV, kind, row0=3, extra=0):
-    """rows int8 (B, row0 + L + 1 + extra, H), xpos int32 (B, L) of one
-    kind (or of every kind, "mixed"), max_e int32 (B,) with the edges 0, -1
-    and 96256 (noise 0 at NTSC's AV)."""
+def bloom_inputs(seed, B, L, H, AV, kind, row0=3, extra=0, wrap=False):
+    """field int8 (B, row0 + L + 1 + extra, H) with line l on row row0 + l
+    (with wrap, on rows that pass the last row to row 0), xpos int32 (B, L)
+    of one kind (or of every kind, "mixed"), max_e int32 (B,) with the
+    edges 0, -1 and 96256 (noise 0 at NTSC's AV)."""
     rng = np.random.default_rng(seed)
     ranges = {"inside": (0, H - AV + 1), "below 0": (-AV - 5, 0),
               "spill": (H - AV, H + 5), "past 2H": (2 * H - AV, 3 * H),
@@ -286,23 +330,25 @@ def bloom_inputs(seed, B, L, H, AV, kind, row0=3, extra=0):
                                0)[0])
     max_e = rng.integers(-2**31, 2**31, B)
     max_e[:3] = [0, -1, 96256][:B]
+    V = row0 + L + 1 + extra
     return dict(
-        rows=rng.integers(-128, 128, (B, row0 + L + 1 + extra, H),
-                          dtype=np.int8),
+        field=rng.integers(-128, 128, (B, V, H), dtype=np.int8),
+        line_row=wrap_rows(B, L, V, V - L // 2 if wrap else row0),
         xpos_l=xpos.astype(np.int32), max_e=max_e.astype(np.int32))
 
 
 @pytest.mark.parametrize("kind", XPOS_KINDS)
 def test_bloom_line_width_plain_matches_jax(kind):
     """Sums and chain against the JAX decoder's expressions
-    (demodulate.py:869-887) on the same rows: rolled = rows from row 3, a
-    line's window in its row and its spill into the next."""
+    (demodulate.py:869-887) on the same rows: rolled = the field's rows
+    from line 0's on, copied out, a line's window in its row and its spill
+    into the next."""
     import jax.numpy as jnp
     from jax import lax
     from ntsc_crt_tpu.ops.fixedpoint import cdiv as jcdiv
     AV, H, L, B = NTSC.av_len, NTSC.hres, 9, 4
     x = bloom_inputs(1, B, L, H, AV, kind)
-    rolled = jnp.asarray(x["rows"])[:, 3:]
+    rolled = jnp.asarray(as_copied(x)["field"])
     me = jnp.asarray(x["max_e"])
     iota_h = jnp.arange(H, dtype=jnp.int32)
     xa = jnp.asarray(x["xpos_l"])[..., None]
@@ -319,8 +365,28 @@ def test_bloom_line_width_plain_matches_jax(kind):
 
     _, want = lax.scan(bloom_step, jnp.full((B,), 16384 // 8, jnp.int32),
                        s_sum.T)
-    same(decode.bloom_line_width(**t(x), row0=3, av_len=AV),
+    same(decode.bloom_line_width(**t(x), av_len=AV),
          np.asarray(want).T, kind)
+
+
+@pytest.mark.parametrize("kind", XPOS_KINDS + ("mixed",))
+def test_bloom_line_width_plain_reads_wrapping_lines_as_the_row_copy(kind):
+    """A line on the field's last row spills into its row 0: the sums in
+    place equal those of the lines' rows copied out in order."""
+    AV, H, L, B = NTSC.av_len, NTSC.hres, 9, 4
+    x = bloom_inputs(2, B, L, H, AV, kind, wrap=True)
+    assert (x["line_row"] == x["field"].shape[1] - 1).any()
+    same(decode.bloom_line_width(**t(x), av_len=AV),
+         decode.bloom_line_width(**t(as_copied(x)), av_len=AV), kind)
+
+
+def bloom_case(kind, shape, B, wrap=False):
+    """NTSC's field (L + 7 rows, line l on row 3 + l), or small odd ones
+    whose chunks straddle rows and the tensor's end and whose L is past the
+    kernel's 256-line pass."""
+    L, H, AV, row0, extra = ((NTSC.lines, NTSC.hres, NTSC.av_len, 3, 3)
+                             if shape == "ntsc" else (300, 61, 50, 1, 0))
+    return bloom_inputs(B, B, L, H, AV, kind, row0, extra, wrap), AV
 
 
 @pytest.mark.gpu
@@ -328,16 +394,29 @@ def test_bloom_line_width_plain_matches_jax(kind):
 @pytest.mark.parametrize("shape", ["ntsc", "ragged"])
 @pytest.mark.parametrize("kind", XPOS_KINDS + ("mixed",))
 def test_bloom_line_width_kernel_matches_plain(cuda, kind, shape, B):
-    """NTSC's rows (rolled4: L + 4 rows, row0 3), or small odd ones whose
-    chunks straddle rows and the tensor's end and whose L is past the
-    kernel's 256-line pass."""
-    L, H, AV, row0, extra = ((NTSC.lines, NTSC.hres, NTSC.av_len, 3, 3)
-                             if shape == "ntsc" else (300, 61, 50, 1, 0))
-    x = bloom_inputs(B, B, L, H, AV, kind, row0, extra)
-    want = decode.bloom_line_width(**t(x), row0=row0, av_len=AV)
+    x, AV = bloom_case(kind, shape, B)
+    want = decode.bloom_line_width(**t(x), av_len=AV)
     n = build.LAUNCHES["bloom_line_width"]
-    same(decode.bloom_line_width(**t(x, cuda), row0=row0, av_len=AV), want)
+    same(decode.bloom_line_width(**t(x, cuda), av_len=AV), want)
     assert build.LAUNCHES["bloom_line_width"] == n + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("shape", ["ntsc", "ragged"])
+@pytest.mark.parametrize("kind", XPOS_KINDS + ("mixed",))
+def test_bloom_line_width_kernel_matches_plain_on_wrapping_lines(cuda, kind,
+                                                                 shape, B):
+    """The same with lines that pass the field's last row to row 0, on a
+    field off the 16-byte grid."""
+    x, AV = bloom_case(kind, shape, B, wrap=True)
+    field = torch.empty(x["field"].size + 3, dtype=torch.int8, device=cuda)
+    field = field[3:].view(x["field"].shape)
+    field.copy_(torch.as_tensor(x["field"]))
+    got = decode.bloom_line_width(field, *(torch.as_tensor(x[n], device=cuda)
+                                           for n in ("line_row", "xpos_l",
+                                                     "max_e")), av_len=AV)
+    same(got, decode.bloom_line_width(**t(as_copied(x)), av_len=AV))
 
 
 # --- K6 place_rows_uniform ----------------------------------------------------
