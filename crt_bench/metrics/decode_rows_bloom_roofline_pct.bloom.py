@@ -1,0 +1,7 @@
+"""K2 decode_rows in its bloom mode's share of its roofline, in %."""
+
+from crt_bench.readers_bloom import roofline_pct
+
+
+def read(tr):
+    return roofline_pct(tr, "decode_rows_bloom")

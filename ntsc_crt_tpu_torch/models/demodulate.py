@@ -29,8 +29,9 @@ CRT_DO_HSYNC = 0).  Each stage keeps one formulation, the plain one:
    (crt_core.c:552-664).
 
 Under a profiler each stage records its span (``utils/profiling.py``
-``span``): ``ntsc.demodulate.noise``, ``.vsync``, ``.line_scan`` (with
-bloom's line widths), ``.decode`` and ``.place``.
+``span``): ``ntsc.demodulate.noise``, ``.vsync``, ``.line_scan``, with
+bloom ``.bloom`` (the line widths and the rotated wave tables), ``.decode``
+and ``.place``.
 """
 
 from __future__ import annotations
@@ -372,9 +373,10 @@ def demodulate_core(
             field_px, do_hsync=do_hsync)
         xpos_l, ypos_l, beg_l, end_l, active_l, wvI_l, wvQ_l = outs
 
-        # line l reads field rows ypos and ypos + 1 (mod V)
-        shifts, bloom, drawn = xpos_l, {}, None
-        if do_bloom:
+    # line l reads field rows ypos and ypos + 1 (mod V)
+    shifts, bloom, drawn = xpos_l, {}, None
+    if do_bloom:
+        with profiling.span("demodulate.bloom"):
             dx_l, scan_l = _bloom_lines(cfg, inp2d, ypos_l, xpos_l, noise,
                                         outw)
             lidx_l = scan_l >> 12
