@@ -17,18 +17,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ntsc_crt_tpu_torch.ops.kernels.probe` prints).  The probe measures the
    cycles per dependent op that prices every chain below.
 4. kernels — each kernel against its plain torch version on the card, on the
-   inputs the paths hand it at batch 1 and 64 (640x480 output): K1
-   encode_rows, K2 decode_rows (3-band), K3 hsync_chase, K4 ccf_ema, K6
+   inputs the paths hand it at batch 1 and 64 (640x480 output): K1's field
+   mode encode_rows_field (the NTSC family's whole field in one launch:
+   held to K1's plain block and the passes around it), K2 decode_rows
+   (3-band), K3 hsync_chase, K4 ccf_ema, K6
    place_rows_uniform and K11 inject_noise from an NTSC step; K2 in conv
    mode from an NTSC eq_mode="conv7" step; K2 in bloom mode,
    bloom_line_width and K6 in bloom mode from an NTSC do_bloom step; K4
    ccf_ema, K5
    vhs_region_b_entries, K11 over region A and K12 vhs_noise_bc from an
-   NTSCVHS step; K1 with a carrier table a row, K2 on 5-sample chroma at
-   1920-sample lines, K3 and K4 (VP 5) from a PV1K step; K1 and K4 (VP 3)
-   from a SNES step; K13 nes_square from a NES step, with and without
-   draw_border (border_color 0x1FF, optimized=False); K11 on each of these
-   paths' and on NES's noise inputs;
+   NTSCVHS step; K1's block mode with a carrier table a row, K2 on
+   5-sample chroma at 1920-sample lines, K3 and K4 (VP 5) from a PV1K step;
+   K1's block mode and K4 (VP 3) from a SNES step; K1's field mode from
+   the NTSCVHS and bloom steps; K13 nes_square from a NES step, with and
+   without draw_border (border_color 0x1FF, optimized=False); K11 on each
+   of these paths' and on NES's noise inputs;
    K7 on the Y/I/Q rows of the NTSC and PV1K K1 inputs; K8 on the NTSC K2
    inputs' Y/I/Q rows, K9 on K8's output, and the unfused chain against K2;
    K2 (each mode), K3 and bloom_line_width read their lines in place from
@@ -51,7 +54,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (ragged_cases: partial warps and tiles, shifts before 0 and past H,
    every K2 mode, bloom rows that restart or meet the forced-zero sample;
    K3 estimates that wrap across H both ways, windows from below 0 and past
-   the rows, W 6, 8 and 16, at batch 5 and 512; K4 at m 16, VP 5, CC 5 over
+   the rows, W 6, 8 and 16, at batch 5 and 512; K1's field mode on
+   NTSC-VHS's and bloom's sizing with pictures that spill past the row end
+   onto killed rows, clip at the field's end or start left of the kill's
+   columns, at batch 1, 5 and 33 (FIELD_EDGES); K4 at m 16, VP 5, CC 5 over
    ragged chunks and at one line; K5 at H 1, 7, 40 and 910 with bands cut
    short and steps past 19H from the seeds 0 and 2**32 - 1;
    bloom_line_width's windows from below 0, spilling, past 2H and wrapping
@@ -171,6 +177,10 @@ OUTW, OUTH = 640, 480
 ORIGIN = {  # kernel -> (CUDA source, the Pallas kernel's pallas_call)
     "encode_rows": ("ntsc_crt_tpu_torch/csrc/encode.cu",
                     "ntsc_crt_tpu/ops/pallas/encode_fused.py:179"),
+    # K1's field mode: the same Pallas kernel, and the XLA passes around it
+    # (the skeleton, the burst, the block's store, VHS's kill)
+    "encode_rows_field": ("ntsc_crt_tpu_torch/csrc/encode.cu",
+                          "ntsc_crt_tpu/ops/pallas/encode_fused.py:179"),
     "decode_rows": ("ntsc_crt_tpu_torch/csrc/decode.cu",
                     "ntsc_crt_tpu/ops/pallas/decode_fused.py:416"),
     "decode_rows_conv": ("ntsc_crt_tpu_torch/csrc/decode.cu",
@@ -285,6 +295,32 @@ def work_encode(a, k, out):
     band = k["coefs"] is not None
     chain = (4 * out.shape[2] if band else 11) * dep()
     return nbytes(*a, out), out.numel() * (43 if band else 31), chain
+
+
+def work_encode_field(a, k, out):
+    """K1's field mode: work_encode's ops and chain over the picture's
+    samples, plus 6 a sample for the field store's span tests; per other
+    field byte 14 (its spans, the mask, the select, the store).  Bytes: K1's
+    inputs and the (B,) and (B, burst_len) arguments, the field written
+    once, the constant tables once, and of the caller's field the bytes
+    that nothing else writes (found by assembling the field over two
+    different caller's fields)."""
+    from ntsc_crt_tpu_torch.ops.kernels import encode
+    img, sy, modI, modQ, gain, base, analog, skel, mask_end, vrows = a[:10]
+    B, desth, destw = sy.shape[0], sy.shape[1], k["destw"]
+    ire = torch.zeros((B, desth, destw), dtype=torch.int8,
+                      device=out.device)
+    spans = {n: k[n] for n in ("xo", "yo", "cb_beg", "bw_beg", "blank")}
+    kept = [encode.assemble_field(torch.full_like(analog, v), ire, *a[7:],
+                                  **spans) for v in (0, 1)]
+    kept = int((kept[0] != kept[1]).sum())
+    n_pic = B * desth * destw
+    ops = (n_pic * (49 if k["coefs"] is not None else 37)
+           + (out.numel() - n_pic) * 14)
+    chain = (4 * destw if k["coefs"] is not None else 11) * dep()
+    return (nbytes(img, sy, modI, modQ, gain, base, skel, mask_end, vrows,
+                   *(t for t in a[10:] if t is not None), out) + kept,
+            ops, chain)
 
 
 def eq_ops(coefs) -> int:
@@ -582,6 +618,9 @@ def kernel_modules():
     return {
         "encode_rows": Kernel(encode, "encode_rows", encode.encode_rows_plain,
                               work_encode),
+        "encode_rows_field": Kernel(encode, "encode_field",
+                                    encode.encode_field_plain,
+                                    work_encode_field),
         "decode_rows": dec,
         "decode_rows_conv": dec,
         "decode_rows_bloom": dec,
@@ -635,9 +674,10 @@ def frames_for(cfg, B, h, w, seed, dev):
                                         dtype=np.uint8), device=dev)
 
 
-def capture_kernel_inputs(pipeline, cfg, B, names, dev, kw):
+def capture_kernel_inputs(pipeline, cfg, B, names, dev, kw, some=False):
     """The arguments each named kernel's wrapper receives on the second
-    step of a batch-B run (a locked, non-trivial state)."""
+    step of a batch-B run (a locked, non-trivial state); some=True: of
+    those the step calls."""
     mods = kernel_modules()
     imgs = frames_for(cfg, B, 240, 320, B, dev)
     st = pipeline.init_batch(cfg, B, OUTW, OUTH, device=dev)
@@ -657,7 +697,8 @@ def capture_kernel_inputs(pipeline, cfg, B, names, dev, kw):
     with patched(sorted(targets, key=lambda t: t[1]), record):
         pipeline.step_batch(cfg, st, imgs, *path_args(B, 1, dev), noise=12,
                             **kw)
-    return {n: seen[mods[n].wrapper] for n in names}
+    return {n: seen[mods[n].wrapper] for n in names
+            if not some or mods[n].wrapper in seen}
 
 
 def k7_args(a, k):
@@ -695,19 +736,25 @@ def k7_rows(a, k):
     return (x, c.repeat(x.shape[0] // 3)), {}
 
 
-# kernels that no path hands arguments of its own: name -> (the kernel whose
-# captured arguments they are derived from, the derivation)
-DERIVED = {"iir_lowpass_rows": ("encode_rows", k7_rows),
-           "eq_threeband_rows": ("decode_rows", k8_args)}
+# kernels that no path hands arguments of its own: name -> (the kernels
+# whose captured arguments they are derived from, the first the path calls,
+# the derivation); K1's field mode takes K1's arguments first
+K1_MODES = ("encode_rows_field", "encode_rows")
+DERIVED = {"iir_lowpass_rows": (K1_MODES, k7_rows),
+           "eq_threeband_rows": (("decode_rows",), k8_args)}
 
 
 def kernel_inputs(pipeline, cfg, B, names, dev, kw):
     """capture_kernel_inputs, with K7's and K8's arguments derived from the
     K1 and K2 arguments of the same step (DERIVED)."""
-    src = sorted({DERIVED[n][0] if n in DERIVED else n for n in names})
-    seen = capture_kernel_inputs(pipeline, cfg, B, src, dev, kw)
-    return {n: DERIVED[n][1](*seen[DERIVED[n][0]]) if n in DERIVED
-            else seen[n] for n in names}
+    src = sorted({s for n in names
+                  for s in (DERIVED[n][0] if n in DERIVED else (n,))})
+    seen = capture_kernel_inputs(pipeline, cfg, B, src, dev, kw, some=True)
+
+    def derived(n):
+        srcs, fn = DERIVED[n]
+        return fn(*next(seen[s] for s in srcs if s in seen))
+    return {n: derived(n) if n in DERIVED else seen[n] for n in names}
 
 
 def k9_args(eqd, a, k):
@@ -789,15 +836,17 @@ def phase_kernels(pipeline, systems, dev):
     each path hands it.  Returns {name: {(label, B): row}}, a kernel's
     first label being the one its JSON row reports."""
     from ntsc_crt_tpu_torch.ops.kernels import probe, scanconv
-    groups = ((systems.NTSC, ("encode_rows", "decode_rows", "hsync_chase",
-                              "ccf_ema", "place_rows_uniform",
+    groups = ((systems.NTSC, ("encode_rows_field", "decode_rows",
+                              "hsync_chase", "ccf_ema", "place_rows_uniform",
                               "inject_noise"), {}),
               (systems.NTSC, ("decode_rows_conv", "inject_noise"), CONV7),
               (systems.NTSC, ("decode_rows_bloom", "bloom_line_width",
                               "place_rows_uniform_bloom", "inject_noise"),
                BLOOM),
-              (systems.NTSCVHS, ("ccf_ema", "vhs_region_b_entries",
-                                 "inject_noise", "vhs_noise_bc"), VHS_KW),
+              (systems.NTSCVHS, ("encode_rows_field", "ccf_ema",
+                                 "vhs_region_b_entries", "inject_noise",
+                                 "vhs_noise_bc"), VHS_KW),
+              (systems.NTSC, ("encode_rows_field",), BLOOM),
               (systems.PV1K, ("encode_rows", "decode_rows", "hsync_chase",
                               "ccf_ema", "inject_noise"), {}),
               (systems.SNES, ("encode_rows", "ccf_ema"), {}),
@@ -813,9 +862,10 @@ def phase_kernels(pipeline, systems, dev):
             if cfg is systems.NTSC:
                 for n in names:
                     gate_wrap(n, label, B, *seen[n])
-            if "encode_rows" in names and cfg.do_bandlimiting:
+            k1 = [n for n in K1_MODES if n in names]
+            if k1 and cfg.do_bandlimiting:
                 check_kernel("iir_lowpass_rows", label, B,
-                             *k7_rows(*seen["encode_rows"]), rows)
+                             *k7_rows(*seen[k1[0]]), rows)
             if "decode_rows" in names and cfg.cc_samples == 4:
                 a, k = seen["decode_rows"]
                 eqd = check_kernel("eq_threeband_rows", label, B,
@@ -848,6 +898,8 @@ def phase_scan_kernels(pipeline, systems, dev, batches, rows):
     groups = ((systems.NTSC, ("decode_rows", "hsync_chase", "ccf_ema",
                               "inject_noise"), {}),
               (systems.NTSC, ("decode_rows_conv",), CONV7),
+              (systems.NTSCVHS, ("encode_rows_field",), VHS_KW),
+              (systems.NTSC, ("encode_rows_field",), BLOOM),
               (systems.PV1K, ("hsync_chase", "ccf_ema", "inject_noise"), {}),
               (systems.NTSCVHS, ("vhs_region_b_entries", "inject_noise",
                                  "vhs_noise_bc"), VHS_KW),
@@ -949,6 +1001,17 @@ NES_EDGES = ((1, (240, 256), False, 0, 0, None, 0),
 K6_BLOOM_EDGES = ((1, 7, 640, 2, 1, 1, 1), (3, 9, 37, 3, 0, 2, 0),
                   (3, 8, 21, 2, 0, 0, 1), (5, 6, 16, 1, 1, 0, 0),
                   (2, 240, 640, 2, 0, 1, 0), (33, 11, 48, 3, 1, 1, 1))
+# K1's field mode on NTSC-VHS: (batches, do_bloom, xoffset, yoffset, each
+# slot's killed rows in turn, None for no kill): the two cells' sizings, a
+# picture spilling past the row end (its tail on killed rows), rows
+# clipped at the field's end, a picture starting left of the kill's columns
+FIELD_EDGES = (((1, 5, 33, 2048), False, 0, 0, (0, 6, 17)),
+               ((1, 5, 33, 2048), True, 0, 0, None),
+               ((1, 5, 33), True, 0, 0, (17, 0, 6)),
+               ((1, 5, 33), False, 100, 0, (0, 6, 17)),
+               ((1, 5, 33), False, 100, 10, (17, 6, 0)),
+               ((1, 5, 33), False, 0, 12, (6, 17, 0)),
+               ((1, 5, 33), False, -100, 0, (17, 17, 6)))
 DCO_EDGES = (0, -1, -5, -2**31, 2**31 - 1, 4)
 BLACK_EDGES = (0, -40000, 2**31 - 1, -2**31, 123)
 WHITE_EDGES = (100, 2**31 - 1, -9000, 12345)
@@ -999,8 +1062,8 @@ def ragged_cases(dev):
     K12 at odd batches, NES's rows, short rows and unaligned input
     (K11_EDGES, K12_EDGES) at the seed and knob edges; K13 at the PPU sizes,
     pixels, offsets and knobs of NES_EDGES; K6's bloom mode at the shapes,
-    knobs and lines of K6_BLOOM_EDGES.  Yields (kernel, label, args,
-    kwargs)."""
+    knobs and lines of K6_BLOOM_EDGES; K1's field mode at FIELD_EDGES.
+    Yields (kernel, label, args, kwargs)."""
     from ntsc_crt_tpu_torch.models import demodulate as dem
     from ntsc_crt_tpu_torch.models import systems
     from ntsc_crt_tpu_torch.ops import filters, lcg
@@ -1176,16 +1239,52 @@ def ragged_cases(dev):
                     + (nes_cfg.cb_beg, nes_cfg.burst_len),
                     cc=nes_cfg.cc_samples, vert_step=nes_cfg.vert_step,
                     burst_level=nes_cfg.burst_level))
+    yield from field_cases(dev, rng)
+
+
+def field_cases(dev, rng):
+    """K1's field mode at FIELD_EDGES: random pictures, carrier tables,
+    burst samples and previous fields, the slots' parities alternating."""
+    from ntsc_crt_tpu_torch.models import modulate, systems
+    cfg = systems.NTSCVHS
+    t = lambda v: torch.as_tensor(np.ascontiguousarray(v), device=dev)  # noqa
+    i32 = lambda lo, hi, n: t(rng.integers(lo, hi, n).astype(np.int32))  # noqa
+    skel, mask_end, vrows = modulate._field_tables(cfg, dev)
+    h, w = 48, 64
+    for batches, bloom, xoff, yoff, kills in FIELD_EDGES:
+        destw, desth = modulate._dest_size(cfg, False, w, h, bloom)
+        xo = (cfg.av_beg + xoff + (cfg.av_len - destw) // 2) & ~3
+        yo = cfg.top + yoff + (cfg.lines - desth) // 2
+        for B in batches:
+            a = (t(rng.integers(0, 256, (B, h, w, 3), dtype=np.uint8)),
+                 i32(0, h, (B, desth)), i32(-32, 33, (B, desth, 4)),
+                 i32(-32, 33, (B, desth, 4)), i32(50, 150, B),
+                 i32(-20, 30, B),
+                 t(rng.integers(-128, 128, (B, cfg.vres, cfg.hres),
+                                dtype=np.int8)),
+                 skel, mask_end, vrows, t(np.arange(B, dtype=np.int32) % 2),
+                 t(rng.integers(-128, 128, (B, cfg.burst_len),
+                                dtype=np.int8)),
+                 None if kills is None else t(np.resize(
+                     np.array(kills, np.int32), B)))
+            yield ("encode_rows_field",
+                   f"B {B}, {'bloom' if bloom else 'NTSC'} sizing, xoffset "
+                   f"{xoff}, yoffset {yoff}, kills {kills}", a,
+                   dict(coefs=modulate._iir_coefs(cfg), xo=xo, yo=yo,
+                        destw=destw, cb_beg=cfg.cb_beg, bw_beg=cfg.bw_beg,
+                        blank=cfg.blank_level))
 
 
 def phase_ragged(dev):
-    """K1-K5, bloom_line_width, K7, K8, K11, K12, K13 and K6's bloom mode
-    against their plain versions on the ragged_cases inputs, at 0 LSB (K2's through
+    """K1-K5 (K1's field mode too), bloom_line_width, K7, K8, K11, K12, K13
+    and K6's bloom mode against their plain versions on the ragged_cases
+    inputs, at 0 LSB (K2's through
     decode_rows_plain_any_shift: the shifts go below 0)."""
     from ntsc_crt_tpu_torch.ops.kernels import decode
     mods = kernel_modules()
     for name, label, a, k in ragged_cases(dev):
         kd = mods[name]
+        prev = a[6].clone() if name == "encode_rows_field" else None
         got = getattr(kd.mod, kd.wrapper)(*kd.fresh(a), **k)
         want = (decode.decode_rows_plain_any_shift(*a, **k)
                 if name.startswith("decode_rows")
@@ -1195,6 +1294,9 @@ def phase_ragged(dev):
         want = want if isinstance(want, tuple) else (want,)
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                   for g, w in zip(got, want))
+        if prev is not None and not torch.equal(a[6], prev):
+            raise SystemExit(f"{name} ragged ({label}): the caller's field "
+                             "was written")
         if [g.shape for g in got] != [w.shape for w in want] or err != 0:
             raise SystemExit(f"{name} ragged ({label}): kernel differs from "
                              f"plain (max |err| {err})")
@@ -1214,8 +1316,9 @@ def phase_ops(systems, dev):
                                                 scanconv)
     B = KERNEL_BATCHES[-1]
     seen = capture_kernel_inputs(pipeline, systems.NTSC, B,
-                                 ("encode_rows", "decode_rows"), dev, {})
-    yiq, c = k7_args(*seen["encode_rows"])
+                                 ("encode_rows_field", "decode_rows"), dev,
+                                 {})
+    yiq, c = k7_args(*seen["encode_rows_field"])
     a, k = seen["decode_rows"]
     k2 = decode.decode_rows(*a, **k)                      # the yardstick
     out = {}
@@ -2000,7 +2103,7 @@ def phase_variant(pipeline, cfg, kw, needed, dev):
 # --- video and front ends -----------------------------------------------------
 
 VIDEO_GOLDENS = GOLDENS.parent / "video_goldens.npz"
-NTSC_KERNELS = ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows",
+NTSC_KERNELS = ("encode_rows_field", "hsync_chase", "ccf_ema", "decode_rows",
                 "inject_noise", "place_rows_uniform")
 
 
@@ -2286,22 +2389,33 @@ def phase_video(pipeline, systems, dev, card):
 
 def main_paths(systems):
     """(cfg, step keywords, the kernels each step must launch) of the six
-    main paths."""
+    main paths, on one card (split_needs: over a row of cards)."""
     common = ("hsync_chase", "ccf_ema", "decode_rows", "inject_noise")
-    rgb = common + ("encode_rows",)
-    return ((systems.NTSC, {}, rgb + ("place_rows_uniform",)),
+    ntsc = common + ("encode_rows_field",)
+    return ((systems.NTSC, {}, ntsc + ("place_rows_uniform",)),
             (systems.NTSCVHS, VHS_KW,
-             rgb + ("place_rows_uniform", "vhs_region_b_entries",
-                    "vhs_noise_bc")),
+             ntsc + ("place_rows_uniform", "vhs_region_b_entries",
+                     "vhs_noise_bc")),
             (systems.NTSC, BLOOM,
-             ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows_bloom",
-              "bloom_line_width", "place_rows_uniform_bloom",
-              "inject_noise")),
+             ("encode_rows_field", "hsync_chase", "ccf_ema",
+              "decode_rows_bloom", "bloom_line_width",
+              "place_rows_uniform_bloom", "inject_noise")),
             (systems.NTSC, CONV7,
-             ("encode_rows", "hsync_chase", "ccf_ema", "decode_rows_conv",
-              "place_rows_uniform", "inject_noise")),
-            (systems.PV1K, {}, rgb + ("place_rows_uniform",)),
+             ("encode_rows_field", "hsync_chase", "ccf_ema",
+              "decode_rows_conv", "place_rows_uniform", "inject_noise")),
+            (systems.PV1K, {}, common + ("encode_rows",
+                                         "place_rows_uniform")),
             (systems.NES, {}, common + ("place_rows_uniform", "nes_square")))
+
+
+def split_needs(needed, shape):
+    """A main path's kernels over a mesh of `shape`: a row of two cards or
+    more splits K1's block by line, and the field's passes run around it,
+    in place of K1's field mode."""
+    if shape[1] < 2:
+        return needed
+    return tuple("encode_rows" if n == "encode_rows_field" else n
+                 for n in needed)
 
 
 def k2_counter(kw):
@@ -2360,7 +2474,8 @@ def spatial_case(pipeline, cfg, kw, needed, shape, devs, B, imgs, whole,
             chunks = step(chunks, imgs, *path_args(B, i, devs[0]))
         return chunks
     records.clear()
-    counts, chunks = counted(f"{label}, {steps} steps", needed, run)
+    counts, chunks = counted(f"{label}, {steps} steps",
+                             split_needs(needed, shape), run)
     same_leaves(mesh.gather(chunks), whole, label)
     check_shards(label, records, counts, grid, cfg.lines, k2_counter(kw))
     return counts
@@ -2471,8 +2586,9 @@ def phase_spatial(pipeline, systems, dev, card):
         # K7, K8 and K9 through their op entries over a group of two
         B = KERNEL_BATCHES[-1]
         seen = capture_kernel_inputs(pipeline, systems.NTSC, B,
-                                     ("encode_rows", "decode_rows"), dev, {})
-        yiq, c = k7_args(*seen["encode_rows"])
+                                     ("encode_rows_field", "decode_rows"),
+                                     dev, {})
+        yiq, c = k7_args(*seen["encode_rows_field"])
         a, k = seen["decode_rows"]
         want = (rowfilters.iir_lowpass_rows_plain(yiq, c),
                 decode.decode_rows(*a, **k))
@@ -2553,9 +2669,10 @@ def phase_demo(dev, card):
                 return demo.main([str(tmp / "card")])
         ms, (launches, rc) = timed(lambda: counted(
             "demo, every system",
-            ("encode_rows", "decode_rows", "hsync_chase", "ccf_ema",
-             "vhs_region_b_entries", "place_rows_uniform", "inject_noise",
-             "vhs_noise_bc", "nes_square"), run))
+            ("encode_rows", "encode_rows_field", "decode_rows",
+             "hsync_chase", "ccf_ema", "vhs_region_b_entries",
+             "place_rows_uniform", "inject_noise", "vhs_noise_bc",
+             "nes_square"), run))
         names = {p.name for p in (tmp / "card").iterdir()}
         expected = {"input.ppm"} | {f"{n.lower()}{s}.ppm"
                                     for n in systems.SYSTEMS
@@ -2626,14 +2743,15 @@ def main() -> int:
             launches[k] += n
 
     # 7. the other variants and encoder families: one step each
-    rgb = ("hsync_chase", "ccf_ema", "decode_rows", "encode_rows",
-           "inject_noise")
+    rgb = ("hsync_chase", "ccf_ema", "decode_rows", "inject_noise",
+           "place_rows_uniform")
     phase_variant(pipeline, systems.NTSC, FIXED_SYNC,
-                  ("encode_rows", "ccf_ema", "decode_rows",
+                  ("encode_rows_field", "ccf_ema", "decode_rows",
                    "place_rows_uniform", "inject_noise"), dev)
-    for cfg in (systems.NTSC_RAINBOW, systems.SNES, systems.TEMPLATE,
-                systems.NESRGB):
-        phase_variant(pipeline, cfg, {}, rgb + ("place_rows_uniform",), dev)
+    phase_variant(pipeline, systems.NTSC_RAINBOW, {},
+                  rgb + ("encode_rows_field",), dev)
+    for cfg in (systems.SNES, systems.TEMPLATE, systems.NESRGB):
+        phase_variant(pipeline, cfg, {}, rgb + ("encode_rows",), dev)
     phase_variant(pipeline, systems.NES, NES_BORDER,
                   ("hsync_chase", "ccf_ema", "decode_rows", "inject_noise",
                    "place_rows_uniform", "nes_square"), dev)

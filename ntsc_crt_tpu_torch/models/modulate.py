@@ -19,8 +19,14 @@ the field is built in three phases:
    waves are kernel K13 (ops/kernels/nes.py), which stores its block itself
    (the JAX package leaves that pass to XLA).
 
-Under a profiler phases 1-2 record the span ``ntsc.modulate.field`` (on
-VHS a second one around the sync kill) and phase 3 ``ntsc.modulate.encode``
+On the card the NTSC family (``modulate_rgb``, ``modulate_vhs``) writes the
+three phases and VHS's sync kill in one launch, K1's field mode
+(``encode.encode_field``), each byte of the new field once; its plain
+version, the CPU's path, makes the passes one after another
+(``encode.assemble_field``), as the line split does around K1's block.
+
+Under a profiler the carrier and burst tables (and VHS's draw) record the
+span ``ntsc.modulate.field``, and the field's bytes ``ntsc.modulate.encode``
 (``utils/profiling.py`` ``span``); NES's one kernel is its ``encode``.
 
 The JAX package's one-hot einsums (its TPU gathers) are plain indexing here.
@@ -149,6 +155,21 @@ def _field_constants(cfg: SystemConfig, device: torch.device):
                  for a in build_skeletons(cfg) + (video_rows_mask(cfg),))
 
 
+@functools.lru_cache(maxsize=16)
+def _field_tables(cfg: SystemConfig, device: torch.device):
+    """(skel (2, VRES, HRES) int8, even parity's then odd's, mask_end
+    (VRES,) int32, video_rows) on `device`: K1's field mode's constants.
+    The skeleton writes a prefix of every row (its blanked rows whole, a
+    picture row up to av_beg), mask_end[r] samples of row r."""
+    skel_even, skel_odd, mask = build_skeletons(cfg)
+    mask_end = mask.sum(axis=1).astype(np.int32)
+    if not (mask == (np.arange(cfg.hres) < mask_end[:, None])).all():
+        raise AssertionError(f"{cfg.name}: the skeleton's mask is not a "
+                             "prefix of each row")
+    return tuple(torch.as_tensor(a, device=device) for a in (
+        np.stack([skel_even, skel_odd]), mask_end, video_rows_mask(cfg)))
+
+
 def _dest_size(cfg: SystemConfig, raw: bool, img_w: int, img_h: int,
                do_bloom: bool = False):
     """destw/desth sizing (crt_ntsc.c:148-173); CRT_DO_BLOOM draws a
@@ -203,7 +224,23 @@ def modulate_rgb(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (analog', ccf') — ccf' is the encoder's burst export
     (iccf << 7, crt_ntsc.c:325-329), shape (B, cc_vper, cc_samples) int32.
-    do_bloom: the CRT_DO_BLOOM destination sizing."""
+    do_bloom: the CRT_DO_BLOOM destination sizing.  `analog` is only
+    read: analog' is a new tensor."""
+    analog, ccf, _ = _modulate_ntsc(
+        cfg, analog, img, None, 0, field=field, frame=frame, hue=hue,
+        as_color=as_color, xoffset=xoffset, yoffset=yoffset,
+        black_point=black_point, white_point=white_point, raw=raw,
+        do_bloom=do_bloom)
+    return analog, ccf
+
+
+def _modulate_ntsc(cfg, analog, img, randstate, do_aberration, *, field,
+                   frame, hue, as_color, xoffset, yoffset, black_point,
+                   white_point, raw, do_bloom):
+    """modulate_rgb, and with a randstate modulate_vhs's head switching:
+    one crt_rand draw a frame (where do_aberration) picks the bottom rows
+    that lose their sync tips, and the ccf export is zeroed.  Returns
+    (analog', ccf', randstate' or None)."""
     if not (cfg.kind == "rgb" and cfg.cc_samples == 4):
         raise ValueError(f"{cfg.name}: not an NTSC-family encoder")
     dev = analog.device
@@ -240,28 +277,34 @@ def modulate_rgb(
         ccmodI = torch.where(on, modI_sn >> 10, 0)
         ccmodQ = torch.where(on, modQ_sn >> 10, 0)
 
-        # --- skeleton + burst -----------------------------------------------
-        skel_even, skel_odd, mask, vrows = _field_constants(cfg, dev)
-        skel = torch.where((field == 1)[:, None, None], skel_odd, skel_even)
-        # a new field: the writes below leave the caller's alone
-        analog = torch.where(mask, skel, analog)
-
+        # the burst's samples (B, burst_len) (crt_ntsc.c:243-250)
         t = torch.arange(cfg.burst_len, device=dev) + cfg.cb_beg
-        cb_idx = (t[None, :] + flip[:, None]) % CC        # (B, burst_len)
-        burst_vals = (cfg.blank_level + torch.gather(ccburst, 1, cb_idx)
-                      * cfg.burst_level) >> 5
-        seg = analog[:, :, cfg.cb_beg:cfg.cb_beg + cfg.burst_len]
-        analog[:, :, cfg.cb_beg:cfg.cb_beg + cfg.burst_len] = torch.where(
-            vrows[None, :, None], burst_vals[:, None, :].to(torch.int8), seg)
+        cb_idx = (t[None, :] + flip[:, None]) % CC
+        burst = ((cfg.blank_level + torch.gather(ccburst, 1, cb_idx)
+                  * cfg.burst_level) >> 5).to(torch.int8)
 
-        # iccf export: last burst write per phase class (crt_ntsc.c:249,
-        # 325-329)
-        icc_idx = (k.long() + flip[:, None]) % CC
-        iccf = (cfg.blank_level + torch.gather(ccburst, 1, icc_idx)
-                * cfg.burst_level) >> 5
-        ccf = (iccf << 7)[:, None, :].expand(B, cfg.cc_vper, CC).contiguous()
+        if randstate is None:
+            # iccf export: last burst write per phase class (crt_ntsc.c:249,
+            # 325-329)
+            icc_idx = (k.long() + flip[:, None]) % CC
+            iccf = (cfg.blank_level + torch.gather(ccburst, 1, icc_idx)
+                    * cfg.burst_level) >> 5
+            ccf = (iccf << 7)[:, None, :].expand(B, cfg.cc_vper,
+                                                 CC).contiguous()
+            kill = None
+        else:
+            # head switching: 6..17 killed bottom rows (crt_ntscvhs.c:234-
+            # 238); a zeroed export (:330-335)
+            do_ab = _b(do_aberration, B, dev) != 0
+            rs = _b(randstate, B, dev)
+            rs_next = lcg.crt_rand_step(rs)
+            kill = torch.where(
+                do_ab, (crem(lcg.crt_rand_out(rs_next), 12) - 8) + 14, 0)
+            randstate = torch.where(do_ab, rs_next, rs)
+            ccf = torch.zeros((B, cfg.cc_vper, CC), dtype=torch.int32,
+                              device=dev)
 
-    # --- active video --------------------------------------------------------
+    # --- active video, and every other byte of the field --------------------
     with profiling.span("modulate.encode"):
         y_idx = torch.arange(desth, dtype=torch.int32, device=dev)[None, :]
         field_offset = cdiv(cdiv(field * h + desth, desth), 2)[:, None]
@@ -271,12 +314,25 @@ def modulate_rgb(
 
         per_row = lambda m: (m * ph[:, None])[:, None].expand(  # noqa: E731
             B, desth, CC).contiguous()
-        ire = _encode_lines(img, sy, per_row(ccmodI), per_row(ccmodQ),
-                            cdiv(cfg.white_level * white_point, 100),
-                            cfg.black_level + black_point,
-                            coefs=_iir_coefs(cfg), xo_mod=xo % CC,
-                            destw=destw)
-        return fastpath.store_active(analog, ire, xo, yo), ccf
+        rows = (img.to(torch.uint8).contiguous(), sy.contiguous(),
+                per_row(ccmodI), per_row(ccmodQ),
+                cdiv(cfg.white_level * white_point, 100),
+                cfg.black_level + black_point)
+        frame_args = (analog, *_field_tables(cfg, dev), field, burst, kill)
+        kw = dict(xo=xo, yo=yo, cb_beg=cfg.cb_beg, bw_beg=cfg.bw_beg,
+                  blank=cfg.blank_level)
+        if spatial.active() or not (0 <= xo < cfg.hres and yo >= 0):
+            # the block split by line (or a placement the field mode does
+            # not take), then the passes
+            ire = _encode_lines(*rows, coefs=_iir_coefs(cfg),
+                                xo_mod=xo % CC, destw=destw)
+            analog = encode.assemble_field(analog, ire, *frame_args[1:],
+                                           **kw)
+        else:
+            analog = encode.encode_field(*rows, *frame_args,
+                                         coefs=_iir_coefs(cfg),
+                                         destw=destw, **kw)
+        return analog, ccf, randstate
 
 
 # ---------------------------------------------------------------------------
@@ -300,32 +356,11 @@ def modulate_vhs(
     ccf export (:330-335).  The per-frame hsync reset (:258) is the
     pipeline's.  do_bloom: the CRT_DO_BLOOM destination sizing
     (crt_ntscvhs.c:149-156).  Returns (analog', ccf_zero, randstate')."""
-    analog, _ = modulate_rgb(
-        cfg, analog, img, field=field, frame=frame, hue=hue,
-        as_color=as_color, xoffset=xoffset, yoffset=yoffset,
-        black_point=black_point, white_point=white_point, raw=raw,
-        do_bloom=do_bloom)
-    dev = analog.device
-    B = analog.shape[0]
-    with profiling.span("modulate.field"):
-        do_ab = _b(do_aberration, B, dev) != 0
-        rs = _b(randstate, B, dev)
-        rs_next = lcg.crt_rand_step(rs)
-        aberration = torch.where(
-            do_ab, (crem(lcg.crt_rand_out(rs_next), 12) - 8) + 14, 0)
-        randstate = torch.where(do_ab, rs_next, rs)
-
-        # analog is modulate_rgb's fresh buffer, so the kill writes in place
-        V = cfg.vres
-        rows = torch.arange(V, dtype=torch.int32, device=dev)[None, :]
-        _, _, _, vrows = _field_constants(cfg, dev)
-        kill = vrows[None, :] & (rows >= V - aberration[:, None])  # (B, V)
-        analog[:, :, :cfg.bw_beg].masked_fill_(kill[:, :, None],
-                                               cfg.blank_level)
-
-        ccf = torch.zeros((B, cfg.cc_vper, cfg.cc_samples),
-                          dtype=torch.int32, device=dev)
-        return analog, ccf, randstate
+    return _modulate_ntsc(
+        cfg, analog, img, randstate, do_aberration, field=field,
+        frame=frame, hue=hue, as_color=as_color, xoffset=xoffset,
+        yoffset=yoffset, black_point=black_point, white_point=white_point,
+        raw=raw, do_bloom=do_bloom)
 
 
 # ---------------------------------------------------------------------------

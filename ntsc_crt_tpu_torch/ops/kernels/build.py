@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # entry point -> argument kinds: "p" pointer or stream, "i" C int
 _SIGNATURES = {
     "ntsc_encode_rows": "ppppppp" + "i" * 11 + "p",
+    "ntsc_encode_rows_field": "p" * 14 + "i" * 18 + "p",
     "ntsc_hsync_chase": "ppppp" + "i" * 8 + "p",
     "ntsc_decode_rows": "p" * 11 + "i" * 9 + "p",
     "ntsc_bloom_line_width": "ppppp" + "i" * 5 + "p",
@@ -53,7 +54,8 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 _lib = None
 # launches since the process started or a reader reset them, by entry point
 # without its "ntsc_" and, where the entry point has modes, by mode
-# ("decode_rows_conv", "decode_rows_bloom", "place_rows_uniform_bloom"):
+# ("decode_rows_conv", "decode_rows_bloom", "place_rows_uniform_bloom";
+# K1's field mode is its own entry point, "encode_rows_field"):
 # the kernels' names in chip_smoke.py and profiling.kernel_of
 LAUNCHES: collections.Counter = collections.Counter()
 # filled by build(): seconds nvcc took (0.0 on a cache hit) and its output

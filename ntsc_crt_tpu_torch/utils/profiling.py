@@ -124,7 +124,7 @@ def profile_stages(system: str = "NTSC", batch: int = 64, outw: int = 640,
 
 
 # the port's CUDA functions on the pipeline paths, as the profiler names
-# them, and their kernels (K2's and K6's mode from their template
+# them, and their kernels (K1's, K2's and K6's mode from their template
 # arguments)
 KERNEL_FUNCS = (("encode_rows_kernel", "encode_rows"),
                 ("decode_rows_kernel", "decode_rows"),
@@ -144,9 +144,11 @@ def kernel_of(event: str):
         if fn in event:
             if name == "decode_rows" and "Fir" in event:
                 return "decode_rows_conv"
-            bloom = "true" in event or "Lb1E" in event
-            if name in ("decode_rows", "place_rows_uniform") and bloom:
+            flag = "true" in event or "Lb1E" in event
+            if name in ("decode_rows", "place_rows_uniform") and flag:
                 return f"{name}_bloom"
+            if name == "encode_rows" and flag:
+                return "encode_rows_field"
             return name
     return None
 

@@ -31,7 +31,7 @@ torch.set_num_threads(1)  # the tier runs several workers on few cores
 
 ROOT = Path(__file__).resolve().parents[1]
 DEMODULATE = ["noise", "vsync", "line_scan", "decode", "place"]
-MODULATE = {"NTSCVHS": ["field", "encode", "field"],
+MODULATE = {"NTSCVHS": ["field", "encode"],
             "NTSC": ["field", "encode"], "NES": ["encode"]}
 
 

@@ -201,6 +201,29 @@ def test_modulate_vhs_bloom_matches_jax():
             eq(g, w, f"raw={raw} {tag}")
 
 
+@pytest.mark.parametrize("xoffset,yoffset", [(100, 0), (100, 10), (0, 12),
+                                             (-100, 0)])
+def test_modulate_vhs_matches_jax_where_the_picture_spills_or_clips(
+        xoffset, yoffset):
+    """Pictures whose rows run past the row end (the flat spill), whose last
+    rows pass the field's end (clipped), or which start left of the kill's
+    columns, over killed bottom rows: the kill still wins on the first
+    bw_beg samples, the picture over the burst and the skeleton."""
+    rng = np.random.default_rng(5)
+    B = len(RANDSTATES)
+    analog = rng.integers(-128, 128, (B, VHS.vres, VHS.hres)).astype(np.int8)
+    img = rng.integers(0, 256, (B, 48, 64, 3)).astype(np.uint8)
+    kw = dict(field=1, frame=0, hue=7, do_aberration=1, xoffset=xoffset,
+              yoffset=yoffset)
+    got = mod.modulate_vhs(VHS, torch.as_tensor(analog),
+                           torch.as_tensor(img), torch.as_tensor(RANDSTATES),
+                           **kw)
+    want = jax.jit(lambda a, im, r: jmod.modulate_vhs(JVHS, a, im, r, **kw))(
+        jnp.asarray(analog), jnp.asarray(img), jnp.asarray(RANDSTATES))
+    for tag, g, w in zip(("analog", "ccf", "randstate"), got, want):
+        eq(g, w, tag)
+
+
 @pytest.mark.parametrize("noise,randstate", [(0, -5), (7, 2**31 - 1),
                                              (40, -(2**31))])
 def test_modulate_then_demodulate_match_jax(noise, randstate):
