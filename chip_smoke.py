@@ -76,12 +76,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    wrap; K6's bloom mode at every ratio, blend, scanline gap and field
    parity, on 16-byte and byte rows, with lines drawn wholly, not at all,
    to mid-row and with dx and scan at the int32 edges).  Then
-   one NTSC batch-1 step and one video_exact call of 4 frames under
-   torch.cuda.set_sync_debug_mode: a
-   synchronizing op inside the line scan, or one of the port's inside
-   video_exact, fails the run; any other is reported with its source line;
-   and one NES batch-1 step (K13, the border, the unoptimized build) under
-   set_sync_debug_mode("error"): any synchronizing op fails the run.
+   one NTSC batch-1 step, one NTSC-VHS step at B 2048 and one video_exact
+   call of 4 frames, run op by op under torch.cuda.set_sync_debug_mode: a
+   synchronizing op inside the line scan or the VHS step, or one of the
+   port's inside video_exact, fails the run; any other is reported with
+   its source line; and one NES batch-1 step (K13, the border, the
+   unoptimized build) under set_sync_debug_mode("error"): any
+   synchronizing op fails the run.  Then both benchmark cells' steps at B
+   2048 replayed as CUDA graphs (models/graphs.py), 6 steps each, held to
+   the same steps run op by op at 0 LSB with equal launch counts, the
+   graphs' counter showing a replay on every step after the capture.
 5. goldens — all 11 tags of tests/fixtures/device_parity_goldens.npz (NTSC,
    NTSC_b16, NTSCVHS, NTSCVHS_b16, NTSC_bloom, NTSC_conv7, PV1K, PV1K_b16,
    NES, SNES, NESRGB) replayed through step / step_batch on the card,
@@ -271,6 +275,19 @@ def patched(targets, wrap):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def eager_steps(pipeline):
+    """pipeline.step run op by op inside the block, never replayed as CUDA
+    graphs (models/graphs.py), so that the module functions a phase patches
+    are called on every step."""
+    graphed = pipeline.step
+    pipeline.step = getattr(graphed, "__wrapped__", graphed)
+    try:
+        yield
+    finally:
+        pipeline.step = graphed
 
 
 # --- the kernels: plain versions, bounds --------------------------------------
@@ -681,8 +698,9 @@ def capture_kernel_inputs(pipeline, cfg, B, names, dev, kw, some=False):
     mods = kernel_modules()
     imgs = frames_for(cfg, B, 240, 320, B, dev)
     st = pipeline.init_batch(cfg, B, OUTW, OUTH, device=dev)
-    st = pipeline.step_batch(cfg, st, imgs, *path_args(B, 0, dev), noise=12,
-                             **kw)
+    with eager_steps(pipeline):
+        st = pipeline.step_batch(cfg, st, imgs, *path_args(B, 0, dev),
+                                 noise=12, **kw)
     seen = {}
     inplace = {mods[n].wrapper: mods[n] for n in names if mods[n].inplace}
 
@@ -694,7 +712,8 @@ def capture_kernel_inputs(pipeline, cfg, B, names, dev, kw, some=False):
         return rec
 
     targets = {(mods[n].mod, mods[n].wrapper) for n in names}
-    with patched(sorted(targets, key=lambda t: t[1]), record):
+    with eager_steps(pipeline), patched(sorted(targets, key=lambda t: t[1]),
+                                        record):
         pipeline.step_batch(cfg, st, imgs, *path_args(B, 1, dev), noise=12,
                             **kw)
     return {n: seen[mods[n].wrapper] for n in names
@@ -1828,7 +1847,7 @@ def stage_times(pipeline, fn):
             return out
         return run
 
-    with patched(names, timed):
+    with eager_steps(pipeline), patched(names, timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -1854,7 +1873,7 @@ def profile_line_scan(pipeline, cfg, st, imgs, B, kw, card):
             return fn(*a, **k)
         return rec
 
-    with patched([(dem, "_line_scan")], record):
+    with eager_steps(pipeline), patched([(dem, "_line_scan")], record):
         pipeline.step_batch(cfg, st, imgs, *path_args(B, 0, dev), noise=12,
                             **kw)
     a, k = seen["args"]
@@ -1881,78 +1900,175 @@ def profile_line_scan(pipeline, cfg, st, imgs, B, kw, card):
           + f"; in all {sum(r[2] for r in rows):.4f}  [{card}]", flush=True)
 
 
-def phase_syncs(pipeline, systems, dev, gate=True):
-    """One NTSC batch-1 step, then one video_exact call of 4 frames, under
+def phase_syncs(pipeline, systems, dev, gate=True, vhs_batch=2048):
+    """One NTSC batch-1 step, one NTSC-VHS step at B 2048 (the benchmark's
+    cell: head switching, noise 24) and one video_exact call of 4 frames,
+    each run op by op (eager_steps) under
     torch.cuda.set_sync_debug_mode("warn"), each synchronizing op reported
-    by the line of the port that called it; one inside the line scan, or
-    any of the port's inside video_exact, fails the run unless `gate` is
-    off (to run the script on a package from before the line scan lost its
-    sync or from before video_exact)."""
+    by the line of the port that called it.  One inside the line scan or
+    inside the VHS step, or any of the port's inside video_exact, fails the
+    run unless `gate` is off (to run the script on a package from before
+    the line scan lost its sync or from before video_exact): a CUDA graph's
+    capture of the step would fail on it (models/graphs.py)."""
     import traceback
 
     from ntsc_crt_tpu_torch.models import demodulate as dem
-    cfg = systems.NTSC
-    img = frames_for(cfg, 1, OUTH, OUTW, 1234, dev)
-    st = pipeline.init_batch(cfg, 1, OUTW, OUTH, device=dev)
-    st = pipeline.step_batch(cfg, st, img, *path_args(1, 0, dev), noise=12)
-    clip = frames_for(cfg, 4, OUTH, OUTW, 1236, dev)
-    single = pipeline.crt_init(cfg, OUTW, OUTH, device=dev)
-    video = None
-    if gate:
-        from ntsc_crt_tpu_torch.models import video
-        video.video_exact(cfg, single, clip, noise=12)          # warm
-    torch.cuda.synchronize()
-    where_now = ["outside"]
-    found = {"outside": set(), "scan": set(), "video": set()}
+    cfg, vhs = systems.NTSC, systems.NTSCVHS
+    with eager_steps(pipeline):
+        img = frames_for(cfg, 1, OUTH, OUTW, 1234, dev)
+        st = pipeline.init_batch(cfg, 1, OUTW, OUTH, device=dev)
+        st = pipeline.step_batch(cfg, st, img, *path_args(1, 0, dev),
+                                 noise=12)
+        B = vhs_batch
+        g = torch.Generator(device=dev)
+        g.manual_seed(1238)
+        imgs_v = torch.randint(0, 256, (B, OUTH, OUTW, 3), generator=g,
+                               device=dev, dtype=torch.uint8)
+        st_v = pipeline.init_batch(vhs, B, OUTW, OUTH, device=dev)
+        st_v = pipeline.step_batch(vhs, st_v, imgs_v, *path_args(B, 0, dev),
+                                   noise=24, **VHS_KW)
+        clip = frames_for(cfg, 4, OUTH, OUTW, 1236, dev)
+        single = pipeline.crt_init(cfg, OUTW, OUTH, device=dev)
+        video = None
+        if gate:
+            from ntsc_crt_tpu_torch.models import video
+            video.video_exact(cfg, single, clip, noise=12)          # warm
+        torch.cuda.synchronize()
+        where_now = ["outside"]
+        found = {"outside": set(), "scan": set(), "vhs": set(),
+                 "video": set()}
 
-    def note(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
-            return
-        # the innermost frame of the port, else of this script (a sync the
-        # port did not ask for)
-        stack = traceback.extract_stack()[:-1]
-        port = [f for f in stack if "ntsc_crt_tpu_torch" in f.filename]
-        mine = [f for f in stack if f.filename == __file__]
-        where = (port or mine or stack)[-1]
-        found[where_now[0]].add(
-            f"{Path(where.filename).name}:{where.lineno}"
-            + ("" if port else " (not the port's)"))
+        def note(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" not in str(message):
+                return
+            # the innermost frame of the port, else of this script (a sync
+            # the port did not ask for)
+            stack = traceback.extract_stack()[:-1]
+            port = [f for f in stack if "ntsc_crt_tpu_torch" in f.filename]
+            mine = [f for f in stack if f.filename == __file__]
+            where = (port or mine or stack)[-1]
+            found[where_now[0]].add(
+                f"{Path(where.filename).name}:{where.lineno}"
+                + ("" if port else " (not the port's)"))
 
-    def mark(name, fn):
-        def run(*a, **k):
-            where_now[0] = "scan"
+        def mark(name, fn):
+            def run(*a, **k):
+                outer, where_now[0] = where_now[0], (
+                    "scan" if where_now[0] == "outside" else where_now[0])
+                try:
+                    return fn(*a, **k)
+                finally:
+                    where_now[0] = outer
+            return run
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            torch.cuda.set_sync_debug_mode("warn")
             try:
-                return fn(*a, **k)
+                with patched([(dem, "_line_scan")], mark):
+                    pipeline.step_batch(cfg, st, img, *path_args(1, 1, dev),
+                                        noise=12)
+                    where_now[0] = "vhs"
+                    pipeline.step_batch(vhs, st_v, imgs_v,
+                                        *path_args(B, 1, dev), noise=24,
+                                        **VHS_KW)
+                    where_now[0] = "outside"
+                if video is not None:
+                    where_now[0] = "video"
+                    video.video_exact(cfg, single, clip, noise=12)
+                    where_now[0] = "outside"
             finally:
-                where_now[0] = "outside"
-        return run
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = note
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with patched([(dem, "_line_scan")], mark):
-                pipeline.step_batch(cfg, st, img, *path_args(1, 1, dev),
-                                    noise=12)
-            if video is not None:
-                where_now[0] = "video"
-                video.video_exact(cfg, single, clip, noise=12)
-                where_now[0] = "outside"
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.set_sync_debug_mode(0)
+    del imgs_v, st_v
     print("NTSC batch-1 step under set_sync_debug_mode: synchronizing ops "
           f"inside _line_scan at {', '.join(sorted(found['scan'])) or 'none'};"
           f" outside it at {', '.join(sorted(found['outside'])) or 'none'}",
           flush=True)
+    print(f"NTSCVHS step at B {B} (do_aberration 1, noise 24) under "
+          "set_sync_debug_mode: synchronizing ops at "
+          f"{', '.join(sorted(found['vhs'])) or 'none'}", flush=True)
     if video is not None:
         print("NTSC video_exact of 4 frames under set_sync_debug_mode: "
               "synchronizing ops at "
               f"{', '.join(sorted(found['video'])) or 'none'}", flush=True)
     if found["scan"] and gate:
         raise SystemExit("the line scan synchronizes the stream")
+    if any("not the port" not in w for w in found["vhs"]) and gate:
+        raise SystemExit("the NTSCVHS step synchronizes the stream")
     if any("not the port" not in w for w in found["video"]):
         raise SystemExit("video_exact synchronizes the stream")
+
+
+GRAPH_CELLS = (  # crt_bench's two cells: (label, system, step keywords)
+    ("vhs_batch2048", "NTSCVHS", dict(noise=24, do_aberration=1,
+                                      mon=dict(saturation=10))),
+    ("bloom_batch2048", "NTSC", dict(noise=24, do_bloom=True, mon=dict(
+        blend=1, scanlines=1, saturation=10))))
+
+
+def phase_graphs(pipeline, systems, dev, B=2048, steps=6):
+    """Both benchmark cells' steps at B 2048 replayed as CUDA graphs
+    (models/graphs.py) against the same steps run op by op: `steps` steps
+    from init_batch, two 640x480 input batches in turn, the parities and
+    dot crawl changing per slot and step.  Every leaf equal (0 LSB), each
+    step's launch counts equal, graphs.GRAPHS one eager first call, one
+    capture and a replay on every later step; the last replay under
+    set_sync_debug_mode("error") (a synchronizing op fails the run)."""
+    from ntsc_crt_tpu_torch.models import graphs
+    from ntsc_crt_tpu_torch.models.demodulate import MonitorParams
+    from ntsc_crt_tpu_torch.ops.kernels import build
+    for label, name, kw in GRAPH_CELLS:
+        cfg = getattr(systems, name)
+        kw = dict(kw, mon=MonitorParams(**kw["mon"]))
+        g = torch.Generator(device=dev)
+        g.manual_seed(11)
+        imgs = [torch.randint(0, 256, (B, OUTH, OUTW, 3), generator=g,
+                              device=dev, dtype=torch.uint8)
+                for _ in range(2)]
+        graphs.reset()
+        st_g = st_e = pipeline.init_batch(cfg, B, OUTW, OUTH, device=dev)
+        for i in range(steps):
+            args = path_args(B, i, dev)
+            torch.cuda.synchronize()
+            build.LAUNCHES.clear()
+            if i == steps - 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                st_g = pipeline.step_batch(cfg, st_g, imgs[i % 2], *args,
+                                           **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            got = dict(build.LAUNCHES)
+            build.LAUNCHES.clear()
+            with eager_steps(pipeline):
+                st_e = pipeline.step_batch(cfg, st_e, imgs[i % 2], *args,
+                                           **kw)
+            if got != dict(build.LAUNCHES):
+                raise SystemExit(f"{label} step {i}: launches {got} replayed"
+                                 f", {dict(build.LAUNCHES)} op by op")
+            for k, a, b in zip(st_g._fields, st_g, st_e):
+                if not torch.equal(a, b):
+                    raise SystemExit(
+                        f"{label} step {i} leaf {k}: {int((a != b).sum())} "
+                        "elements differ between the replay and the step "
+                        "op by op")
+        want = {"eager_first": 1, "captures": 1, "replays": steps - 2}
+        plans = [p for p in graphs._CACHE.values()
+                 if isinstance(p, graphs.Plan)]
+        print(f"{label} B {B}: {steps} steps through CUDA graphs equal the "
+              f"steps op by op (0 LSB, every leaf); launches a step {got}; "
+              f"graphs.GRAPHS {dict(graphs.GRAPHS)}; "
+              + (f"{sum(g is not None for g in plans[0].graphs)} graphs, "
+                 f"{len(plans[0].calls)} eager calls a step "
+                 f"({', '.join(c.fn.__name__ for c in plans[0].calls)})"
+                 if plans else f"failures {graphs.FAILURES}"), flush=True)
+        if graphs.GRAPHS != want:
+            raise SystemExit(f"{label}: graphs.GRAPHS {dict(graphs.GRAPHS)}"
+                             f", failures {graphs.FAILURES}")
+        del imgs, st_g, st_e, plans
+        graphs.reset()
+        torch.cuda.empty_cache()
 
 
 def nes_sync_free(pipeline, systems, dev) -> None:
@@ -2015,7 +2131,9 @@ def phase_path(pipeline, cfg, kw, needed, card, dev, steps1=20, stepsB=5):
         return r1, rB
 
     from ntsc_crt_tpu_torch.models import demodulate as dem
+    from ntsc_crt_tpu_torch.models import graphs
     general = []
+    failed, replays = dict(graphs.FAILURES), graphs.GRAPHS["replays"]
 
     def note(name, fn):
         def run(*a, **k):
@@ -2029,6 +2147,13 @@ def phase_path(pipeline, cfg, kw, needed, card, dev, steps1=20, stepsB=5):
     if general:
         raise SystemExit(f"{label}: the general row placement (per-row "
                          f"gathers) ran {len(general)} times on a main path")
+    new = [v for k, v in graphs.FAILURES.items() if k not in failed]
+    print(f"{label} main path: {graphs.GRAPHS['replays'] - replays} steps "
+          f"replayed as CUDA graphs; failed captures {new or 'none'}",
+          flush=True)
+    if new or graphs.GRAPHS["replays"] == replays:
+        raise SystemExit(f"{label}: a main path's step must replay as CUDA "
+                         "graphs (models/graphs.py)")
     print(f"{label} main path: every step's rows placed by K6, none by the "
           "general gathers", flush=True)
     (ms1, prev1, args1, st1, _), (msB, prevB, argsB, stB, _) = r1, rB
@@ -2732,6 +2857,9 @@ def main() -> int:
     # the line scan runs without a stream synchronize; NES's step with none
     phase_syncs(pipeline, systems, dev)
     nes_sync_free(pipeline, systems, dev)
+
+    # the benchmark cells' steps replayed as CUDA graphs, against op by op
+    phase_graphs(pipeline, systems, dev)
 
     # 5. goldens
     phase_goldens(pipeline, systems, dev)

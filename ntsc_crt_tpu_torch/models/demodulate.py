@@ -32,6 +32,12 @@ Under a profiler each stage records its span (``utils/profiling.py``
 ``span``): ``ntsc.demodulate.noise``, ``.vsync``, ``.line_scan``, with
 bloom ``.bloom`` (the line widths and the rotated wave tables), ``.decode``
 and ``.place``.
+
+K11 and the row placement are calls through ``graphs.eager``: under a CUDA
+graph of the step (models/graphs.py) they stay eager, K11 because it reads
+the modulator's fresh field (it writes the noisy field into the graph's
+buffer), the placement because it reads the caller's previous output and
+returns a fresh one.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
+from ntsc_crt_tpu_torch.models import graphs
 from ntsc_crt_tpu_torch.models.systems import SystemConfig
 from ntsc_crt_tpu_torch.ops import fastpath, filters, lcg
 from ntsc_crt_tpu_torch.ops.fixedpoint import (cdiv, crem, np_sincos14,
@@ -106,9 +113,10 @@ def _inject_noise(cfg: SystemConfig, analog2d: torch.Tensor, rn: torch.Tensor,
     contiguous; rn and noise int32 (B,).  Returns (noisy int8 (B, V, H),
     rn' int32 (B,))."""
     apow, csum = _noise_tables(cfg, analog2d.device)
-    out, rn_out = noise_kernels.inject_noise(
-        analog2d.view(analog2d.shape[0], -1), apow, csum, rn, noise,
-        shift=16, ga=lcg.LCG_A, gc=lcg.LCG_B)
+    out, rn_out = graphs.eager(
+        noise_kernels.inject_noise, analog2d.view(analog2d.shape[0], -1),
+        apow, csum, rn, noise, shift=16, ga=lcg.LCG_A, gc=lcg.LCG_B,
+        keep=(0, 1))
     return out.view(analog2d.shape), rn_out
 
 
@@ -164,9 +172,9 @@ def _inject_noise_vhs(cfg: SystemConfig, analog_flat: torch.Tensor,
     band_line = (crem(lcg.crt_rand_out(head_st), 8) - 4) + 14   # 10..17
     # region A: sample k's first call is crt_rand state 2k + 1 from head_st,
     # its byte bits 17..24 of the state; its second call ends the region
-    out, lastA = noise_kernels.inject_noise(
-        analog_flat, tab["apowA"], tab["csumA"], head_st, noise, shift=17,
-        ga=vhs.A2, gc=vhs.C2)
+    out, lastA = graphs.eager(
+        noise_kernels.inject_noise, analog_flat, tab["apowA"], tab["csumA"],
+        head_st, noise, shift=17, ga=vhs.A2, gc=vhs.C2, keep=(0, 1))
     stA = lcg.crt_rand_step(lastA)
     entB = vhs.vhs_region_b_entries(stA, n_steps=nB, H=cfg.hres)
     return noise_kernels.vhs_noise_bc(out, entB, tab["a3"], tab["c3"],
@@ -400,9 +408,9 @@ def demodulate_core(
             _b(mon.contrast, B, dev)[:, None].expand(B, L).contiguous(),
             whole=(0,), coefs=coefs, av_len=AV, outw=outw, **bloom)
     with profiling.span("demodulate.place"):
-        out_new = _place_rows(rgb, out_prev, beg_l, end_l, active_l,
-                              mon.blend, mon.scanlines, outh, bloom=drawn,
-                              field_px=field_px, v_fac=v_fac)
+        out_new = graphs.eager(_place_rows, rgb, out_prev, beg_l, end_l,
+                               active_l, mon.blend, mon.scanlines, outh,
+                               bloom=drawn, field_px=field_px, v_fac=v_fac)
     return out_new, dict(hsync=hsync_new, vsync=vsync_new, ccf=ccf_new,
                          rn=rn_new, randstate=randstate)
 

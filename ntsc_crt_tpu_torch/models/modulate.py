@@ -29,6 +29,11 @@ Under a profiler the carrier and burst tables (and VHS's draw) record the
 span ``ntsc.modulate.field``, and the field's bytes ``ntsc.modulate.encode``
 (``utils/profiling.py`` ``span``); NES's one kernel is its ``encode``.
 
+Each family writes its new field's bytes in one call through
+``graphs.eager``: under a CUDA graph of the step (models/graphs.py) that
+call stays eager, since it reads the caller's image and field and returns
+a fresh field; the tables before it are (B,)-sized graph work.
+
 The JAX package's one-hot einsums (its TPU gathers) are plain indexing here.
 """
 
@@ -39,9 +44,11 @@ import functools
 import numpy as np
 import torch
 
+from ntsc_crt_tpu_torch.models import graphs
 from ntsc_crt_tpu_torch.models.systems import CHROMA_CHECKERED, SystemConfig
 from ntsc_crt_tpu_torch.ops import fastpath, filters, lcg
-from ntsc_crt_tpu_torch.ops.fixedpoint import cdiv, crem, i32, sincos14
+from ntsc_crt_tpu_torch.ops.fixedpoint import (cdiv, crem, host_i32, i32,
+                                               sincos14)
 from ntsc_crt_tpu_torch.ops.kernels import encode, nes
 from ntsc_crt_tpu_torch.parallel import spatial
 from ntsc_crt_tpu_torch.utils import profiling
@@ -51,8 +58,8 @@ def _b(x, B: int, device) -> torch.Tensor:
     """A scalar-or-(B,) parameter as an int32 (B,) tensor on `device`; a
     Python int wraps to int32 on the host (one fill on the device)."""
     if isinstance(x, (int, np.integer)):
-        v = ((int(x) + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
-        return torch.full((B,), v, dtype=torch.int32, device=device)
+        return torch.full((B,), host_i32(x), dtype=torch.int32,
+                          device=device)
     return torch.broadcast_to(i32(x, device=device), (B,)).contiguous()
 
 
@@ -329,9 +336,8 @@ def _modulate_ntsc(cfg, analog, img, randstate, do_aberration, *, field,
             analog = encode.assemble_field(analog, ire, *frame_args[1:],
                                            **kw)
         else:
-            analog = encode.encode_field(*rows, *frame_args,
-                                         coefs=_iir_coefs(cfg),
-                                         destw=destw, **kw)
+            analog = graphs.eager(encode.encode_field, *rows, *frame_args,
+                                  coefs=_iir_coefs(cfg), destw=destw, **kw)
         return analog, ccf, randstate
 
 
@@ -460,15 +466,6 @@ def modulate_vper(
         ccburst, ccmodI, ccmodQ = (torch.where(on, t, 0)
                                    for t in (ccburst, ccmodI, ccmodQ))
 
-        skel_even, skel_odd, mask, vrows = _field_constants(cfg, dev)
-        skel = torch.where((field == 1)[:, None, None], skel_odd, skel_even)
-        analog = torch.where(mask, skel, analog)
-
-        burst = slice(cfg.cb_beg, cfg.cb_beg + cfg.burst_len)
-        analog[:, :, burst] = torch.where(
-            vrows[None, :, None], _burst_rows(ccburst, cfg, 0, cfg.vres),
-            analog[:, :, burst])
-
         # iccf[(n+3) % VP][k] is written from class n % VP (crt_snes.c:239)
         src = (torch.arange(VP, device=dev) - 3) % VP
         ccf = ((cfg.blank_level + ccburst[:, src] * cfg.burst_level)
@@ -482,10 +479,28 @@ def modulate_vper(
             field_offset = torch.zeros((B, 1), dtype=torch.int32,
                                        device=dev)
         sy = ((y_idx * h) // desth + field_offset).clamp(max=h - 1)
-        analog = _encode_vper(cfg, analog, img, sy, ccmodI, ccmodQ,
-                              black_point, white_point, xo, yo, destw,
-                              _iir_coefs(cfg))
+        analog = graphs.eager(_vper_field, cfg, analog, img, field, ccburst,
+                              sy, ccmodI, ccmodQ, black_point, white_point,
+                              xo=xo, yo=yo, destw=destw,
+                              coefs=_iir_coefs(cfg))
         return analog, ccf
+
+
+def _vper_field(cfg: SystemConfig, analog, img, field, ccburst, sy, modI,
+                modQ, black_point, white_point, *, xo: int, yo: int,
+                destw: int, coefs) -> torch.Tensor:
+    """modulate_vper's new field: the parity's skeleton laid over the
+    caller's field, the burst on every video row by its vertical class,
+    K1's block stored at (yo, xo)."""
+    skel_even, skel_odd, mask, vrows = _field_constants(cfg, analog.device)
+    skel = torch.where((field == 1)[:, None, None], skel_odd, skel_even)
+    analog = torch.where(mask, skel, analog)
+    burst = slice(cfg.cb_beg, cfg.cb_beg + cfg.burst_len)
+    analog[:, :, burst] = torch.where(
+        vrows[None, :, None], _burst_rows(ccburst, cfg, 0, cfg.vres),
+        analog[:, :, burst])
+    return _encode_vper(cfg, analog, img, sy, modI, modQ, black_point,
+                        white_point, xo, yo, destw, coefs)
 
 
 # ---------------------------------------------------------------------------
@@ -519,19 +534,30 @@ def modulate_nesrgb(
         ccburst, ccmodI, ccmodQ = _vper_tables(
             cfg, _b(dot_crawl_offset, B, dev), 0, hue[:, None, None] + 123,
             -90)
-
-        analog = _nes_skeleton(cfg, dev).expand(B, -1, -1).clone()
-        analog[:, yo:yo + desth, cfg.cb_beg:cfg.cb_beg + cfg.burst_len] = \
-            _burst_rows(ccburst, cfg, yo, desth)
         ccf = ((cfg.blank_level + ccburst * cfg.burst_level) >> 5) << 7
 
     with profiling.span("modulate.encode"):
         y_idx = torch.arange(desth, dtype=torch.int32, device=dev)[None, :]
         sy = ((y_idx * h) // desth).clamp(0, h - 1).expand(B, desth)
-        analog = _encode_vper(cfg, analog, img, sy, ccmodI, ccmodQ,
-                              _b(black_point, B, dev),
-                              _b(white_point, B, dev), xo, yo, destw, None)
+        analog = graphs.eager(_nesrgb_field, cfg, img, ccburst, sy, ccmodI,
+                              ccmodQ, _b(black_point, B, dev),
+                              _b(white_point, B, dev), xo=xo, yo=yo,
+                              destw=destw)
         return analog, ccf
+
+
+def _nesrgb_field(cfg: SystemConfig, img, ccburst, sy, modI, modQ,
+                  black_point, white_point, *, xo: int, yo: int,
+                  destw: int) -> torch.Tensor:
+    """modulate_nesrgb's new field: the NES skeleton, the burst on the
+    picture rows, K1's block (no bandlimiting) stored at (yo, xo)."""
+    desth = sy.shape[1]
+    analog = _nes_skeleton(cfg, img.device).expand(ccburst.shape[0], -1,
+                                                   -1).clone()
+    analog[:, yo:yo + desth, cfg.cb_beg:cfg.cb_beg + cfg.burst_len] = \
+        _burst_rows(ccburst, cfg, yo, desth)
+    return _encode_vper(cfg, analog, img, sy, modI, modQ, black_point,
+                        white_point, xo, yo, destw, None)
 
 
 # ---------------------------------------------------------------------------
@@ -571,8 +597,8 @@ def modulate_nes(
     # PPUpx2pos(327) on lines 259-261; the border's rows run TOP..BOT+2
     # from LAV_BEG
     with profiling.span("modulate.encode"):
-        return nes.nes_square(
-            torch.empty_like(analog), ppu, nes.square_table(dev),
+        return graphs.eager(
+            _nes_field, analog, ppu, nes.square_table(dev),
             _b(dot_crawl_offset, B, dev), _b(black_point, B, dev),
             _b(white_point, B, dev), _b(border_color, B, dev),
             _b(hue, B, dev), nes.burst_sines(dev), xo=xo, yo=yo,
@@ -582,4 +608,13 @@ def modulate_nes(
                       cfg.sync_level, cfg.blank_level),
             burst_box=(brow0, brows, cfg.cb_beg, cfg.burst_len),
             cc=cfg.cc_samples, vert_step=cfg.vert_step,
-            burst_level=cfg.burst_level, black_level=cfg.black_level)
+            burst_level=cfg.burst_level, black_level=cfg.black_level,
+            keep=(1,))
+
+
+def _nes_field(like: torch.Tensor, *args, out=None, **kw):
+    """K13 into a new field shaped as `like`, whose bytes are not read; its
+    ccf export into out[1] where `out` is given (graphs.eager's keep)."""
+    if out is not None:
+        kw["ccf"] = out[1]
+    return nes.nes_square(torch.empty_like(like), *args, **kw)

@@ -10,7 +10,8 @@ Every preset runs, dispatched to its encoder family like the reference's
 CRT_SYSTEM compile switch (crt_core.h:38-59), with the reference's build
 variants as keywords (eq_mode, do_bloom, do_vsync, do_hsync; NES:
 draw_border, border_color, optimized).  State lives on the CUDA card unless
-the caller asks for the CPU (``device="cpu"``).
+the caller asks for the CPU (``device="cpu"``); there `step` replays as
+CUDA graphs (models/graphs.py).
 """
 
 from __future__ import annotations
@@ -20,10 +21,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from ntsc_crt_tpu_torch.models import demodulate as _dem
+from ntsc_crt_tpu_torch.models import graphs
 from ntsc_crt_tpu_torch.models import modulate as _mod
 from ntsc_crt_tpu_torch.models.demodulate import MonitorParams
 from ntsc_crt_tpu_torch.models.systems import SystemConfig
 from ntsc_crt_tpu_torch.utils import profiling
+
+# the step's CUDA graph counts: captures, replays, eager_<reason>
+GRAPHS = graphs.GRAPHS
 
 
 class CRTState(NamedTuple):
@@ -178,6 +183,7 @@ def demodulate(cfg: SystemConfig, state: CRTState, noise=0,
         return _unlift(state, batched)
 
 
+@graphs.graphed
 def step(cfg: SystemConfig, state: CRTState, img: torch.Tensor, *,
          field=0, frame=0, hue=0, noise=0,
          mon: Optional[MonitorParams] = None, as_color=1, raw: bool = False,
@@ -192,7 +198,11 @@ def step(cfg: SystemConfig, state: CRTState, img: torch.Tensor, *,
     do_bloom (CRT_DO_BLOOM, crt_core.h:70), eq_mode (USE_CONVOLUTION,
     crt_core.c:85-147), do_vsync/do_hsync (crt_core.h:71-72),
     draw_border/border_color (NES_BORDER, crt_nes.c:69), optimized
-    (NES_OPTIMIZED, crt_nes.c:63)."""
+    (NES_OPTIMIZED, crt_nes.c:63).
+
+    On the card a key's later calls replay the step as CUDA graphs, the
+    kernels that touch the caller's frames left eager between them
+    (models/graphs.py); ``step.__wrapped__`` runs it op by op."""
     mon = mon or MonitorParams()
     with profiling.span("step"):
         state = modulate(cfg, state, img, field=field, frame=frame, hue=hue,

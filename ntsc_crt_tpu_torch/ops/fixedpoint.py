@@ -57,6 +57,11 @@ def posmod(a, n) -> torch.Tensor:
     return torch.where(r < 0, r + n, r)
 
 
+def host_i32(v: int) -> int:
+    """A host int wrapped to int32, as the card holds it."""
+    return ((int(v) + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
 def host_tdiv(a: int, b: int) -> int:
     """C truncating division on host Python ints."""
     q = abs(a) // abs(b)

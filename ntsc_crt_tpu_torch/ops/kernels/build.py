@@ -58,6 +58,10 @@ _lib = None
 # K1's field mode is its own entry point, "encode_rows_field"):
 # the kernels' names in chip_smoke.py and profiling.kernel_of
 LAUNCHES: collections.Counter = collections.Counter()
+# while models/graphs.py captures a step: called with each launch's name and
+# pointer arguments, raises where a graph would hold a pointer that changes
+# from call to call
+capture_check = None
 # filled by build(): seconds nvcc took (0.0 on a cache hit) and its output
 last_build = {"seconds": None, "log": "", "path": None}
 
@@ -137,6 +141,9 @@ def launch(name: str, device: torch.device, *args, mode: str = None) -> None:
     reported a CUDA error; else count it in LAUNCHES, under `mode` where
     the entry point's arguments choose one."""
     fn = getattr(library(), name)
+    if capture_check is not None:
+        capture_check(name, [a for a, kind in zip(args, _SIGNATURES[name])
+                             if kind == "p"])
     with torch.cuda.device(device):
         rc = fn(*args, stream(device))
     if rc != 0:

@@ -194,7 +194,8 @@ def nes_square(analog: torch.Tensor, ppu: torch.Tensor, table: torch.Tensor,
                destw: int, desth: int, draw_border: bool,
                box: tuple[int, int, int], vp: int, black_level: int,
                skeleton: tuple, burst_box: tuple, cc: int, vert_step: int,
-               burst_level: int) -> tuple[torch.Tensor, torch.Tensor]:
+               burst_level: int,
+               ccf: torch.Tensor = None) -> tuple[torch.Tensor, torch.Tensor]:
     """analog int8 (B, V, H), every sample written in place (what it held
     is not read); ppu (B, h, w) PPU pixels (uint16; any integer type, of
     which bits 0-8 are read); table int32 (512, 12), square_table(); dco,
@@ -205,7 +206,8 @@ def nes_square(analog: torch.Tensor, ppu: torch.Tensor, table: torch.Tensor,
     sync_end, sep_row, sep_end, sync_level, blank_level); burst_box =
     (first row, rows, first column, columns), cc its column classes,
     vert_step and burst_level its angle step and level.  Returns (analog,
-    the ccf export int32 (B, vp, cc))."""
+    the ccf export int32 (B, vp, cc)), the export written into `ccf` where
+    it is given (a CUDA graph's buffer, models/graphs.py)."""
     params = (dco, black_point, white_point, border_color, hue)
     _check(analog, ppu, table, params, sines, xo=xo, yo=yo, destw=destw,
            desth=desth, box=box, vp=vp, skeleton=skeleton,
@@ -215,7 +217,9 @@ def nes_square(analog: torch.Tensor, ppu: torch.Tensor, table: torch.Tensor,
               burst_box=burst_box, cc=cc, vert_step=vert_step,
               burst_level=burst_level)
     if analog.device.type == "cpu":
-        return nes_square_plain(analog, ppu, table, *params, sines, **kw)
+        analog, got = nes_square_plain(analog, ppu, table, *params, sines,
+                                       **kw)
+        return analog, got if ccf is None else ccf.copy_(got)
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
     dev = analog.device
@@ -231,7 +235,9 @@ def nes_square(analog: torch.Tensor, ppu: torch.Tensor, table: torch.Tensor,
                         "hue"), params):
         build.check(name, t, torch.int32, (B,), dev)
     build.check("sines", sines, torch.int32, (719,), dev)
-    ccf = torch.empty((B, vp, cc), dtype=torch.int32, device=dev)
+    if ccf is None:
+        ccf = torch.empty((B, vp, cc), dtype=torch.int32, device=dev)
+    build.check("ccf", ccf, torch.int32, (B, vp, cc), dev)
     build.launch("ntsc_nes_square", dev, analog.data_ptr(), ppu.data_ptr(),
                  table.data_ptr(), *(t.data_ptr() for t in params),
                  sines.data_ptr(), ccf.data_ptr(), B, V, H, h, w, xo, yo,

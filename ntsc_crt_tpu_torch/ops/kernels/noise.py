@@ -48,19 +48,26 @@ def _i32(v: int) -> int:
 
 def inject_noise(analog: torch.Tensor, apow: torch.Tensor, csum: torch.Tensor,
                  rn: torch.Tensor, noise: torch.Tensor, *, shift: int,
-                 ga: int, gc: int) -> tuple[torch.Tensor, torch.Tensor]:
+                 ga: int, gc: int,
+                 out=None) -> tuple[torch.Tensor, torch.Tensor]:
     """analog int8 (B, N); apow, csum int32 (n,), 1 <= n <= N, the stream's
     factors (entry i+1 is entry i stepped by x -> ga * x + gc); rn and
     noise int32 (B,); 0 <= shift <= 24.  Returns (int8 (B, N), state_{n-1}
-    int32 (B,))."""
+    int32 (B,)), written into `out`, such a pair, where it is given (a
+    CUDA graph's buffers, models/graphs.py)."""
     B, N = analog.shape
     n = apow.shape[0]
     if not (1 <= n <= N and csum.shape == apow.shape and 0 <= shift <= 24):
         raise ValueError(f"inject_noise: bad sizes N={N} n={n} "
                          f"csum={tuple(csum.shape)} shift={shift}")
     if analog.device.type == "cpu":
-        return inject_noise_plain(analog, apow, csum, rn, noise, shift=shift,
-                                  ga=ga, gc=gc)
+        got = inject_noise_plain(analog, apow, csum, rn, noise, shift=shift,
+                                 ga=ga, gc=gc)
+        if out is None:
+            return got
+        for o, g in zip(out, got):
+            o.copy_(g)
+        return out
     from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
 
     dev = analog.device
@@ -69,13 +76,14 @@ def inject_noise(analog: torch.Tensor, apow: torch.Tensor, csum: torch.Tensor,
         build.check(name, t, torch.int32, (n,), dev)
     for name, t in (("rn", rn), ("noise", noise)):
         build.check(name, t, torch.int32, (B,), dev)
-    out = torch.empty_like(analog)
-    last = torch.empty_like(rn)
-    build.launch("ntsc_inject_noise", dev, analog.data_ptr(), out.data_ptr(),
-                 apow.data_ptr(), csum.data_ptr(), rn.data_ptr(),
-                 noise.data_ptr(), last.data_ptr(), B, N, n, shift,
-                 _i32(ga), _i32(gc))
-    return out, last
+    field, last = out or (torch.empty_like(analog), torch.empty_like(rn))
+    build.check("out", field, torch.int8, (B, N), dev)
+    build.check("last", last, torch.int32, (B,), dev)
+    build.launch("ntsc_inject_noise", dev, analog.data_ptr(),
+                 field.data_ptr(), apow.data_ptr(), csum.data_ptr(),
+                 rn.data_ptr(), noise.data_ptr(), last.data_ptr(), B, N, n,
+                 shift, _i32(ga), _i32(gc))
+    return field, last
 
 
 def inject_noise_plain(analog, apow, csum, rn, noise, *, shift: int, ga: int,
