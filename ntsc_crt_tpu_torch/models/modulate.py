@@ -28,6 +28,10 @@ version, the CPU's path, makes the passes one after another
 Under a profiler the carrier and burst tables (and VHS's draw) record the
 span ``ntsc.modulate.field``, and the field's bytes ``ntsc.modulate.encode``
 (``utils/profiling.py`` ``span``); NES's one kernel is its ``encode``.
+Inside ``encode`` the vper and NESRGB encoders' full-field passes record
+their own spans: the skeleton laid over the field and the burst stored
+into it ``ntsc.modulate.skeleton``, K1's block stored into the field
+``ntsc.modulate.store``.
 
 Each family writes its new field's bytes in one call through
 ``graphs.eager``: under a CUDA graph of the step (models/graphs.py) that
@@ -417,7 +421,8 @@ def _encode_vper(cfg: SystemConfig, analog, img, sy, modI, modQ,
                         cdiv(cfg.white_level * white_point, 100),
                         cfg.black_level + black_point, coefs=coefs,
                         xo_mod=xo % cfg.cc_samples, destw=destw)
-    return fastpath.store_active(analog, ire, xo, yo)
+    with profiling.span("modulate.store"):
+        return fastpath.store_active(analog, ire, xo, yo)
 
 
 def modulate_vper(
@@ -492,13 +497,15 @@ def _vper_field(cfg: SystemConfig, analog, img, field, ccburst, sy, modI,
     """modulate_vper's new field: the parity's skeleton laid over the
     caller's field, the burst on every video row by its vertical class,
     K1's block stored at (yo, xo)."""
-    skel_even, skel_odd, mask, vrows = _field_constants(cfg, analog.device)
-    skel = torch.where((field == 1)[:, None, None], skel_odd, skel_even)
-    analog = torch.where(mask, skel, analog)
-    burst = slice(cfg.cb_beg, cfg.cb_beg + cfg.burst_len)
-    analog[:, :, burst] = torch.where(
-        vrows[None, :, None], _burst_rows(ccburst, cfg, 0, cfg.vres),
-        analog[:, :, burst])
+    with profiling.span("modulate.skeleton"):
+        skel_even, skel_odd, mask, vrows = _field_constants(cfg,
+                                                            analog.device)
+        skel = torch.where((field == 1)[:, None, None], skel_odd, skel_even)
+        analog = torch.where(mask, skel, analog)
+        burst = slice(cfg.cb_beg, cfg.cb_beg + cfg.burst_len)
+        analog[:, :, burst] = torch.where(
+            vrows[None, :, None], _burst_rows(ccburst, cfg, 0, cfg.vres),
+            analog[:, :, burst])
     return _encode_vper(cfg, analog, img, sy, modI, modQ, black_point,
                         white_point, xo, yo, destw, coefs)
 
@@ -552,10 +559,11 @@ def _nesrgb_field(cfg: SystemConfig, img, ccburst, sy, modI, modQ,
     """modulate_nesrgb's new field: the NES skeleton, the burst on the
     picture rows, K1's block (no bandlimiting) stored at (yo, xo)."""
     desth = sy.shape[1]
-    analog = _nes_skeleton(cfg, img.device).expand(ccburst.shape[0], -1,
-                                                   -1).clone()
-    analog[:, yo:yo + desth, cfg.cb_beg:cfg.cb_beg + cfg.burst_len] = \
-        _burst_rows(ccburst, cfg, yo, desth)
+    with profiling.span("modulate.skeleton"):
+        analog = _nes_skeleton(cfg, img.device).expand(ccburst.shape[0], -1,
+                                                       -1).clone()
+        analog[:, yo:yo + desth, cfg.cb_beg:cfg.cb_beg + cfg.burst_len] = \
+            _burst_rows(ccburst, cfg, yo, desth)
     return _encode_vper(cfg, analog, img, sy, modI, modQ, black_point,
                         white_point, xo, yo, destw, None)
 
