@@ -18,7 +18,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    cycles per dependent op that prices every chain below.
 4. kernels — each kernel against its plain torch version on the card, on the
    inputs the paths hand it at batch 1 and 64 (640x480 output): K1's field
-   mode encode_rows_field (the NTSC family's whole field in one launch:
+   mode encode_rows_field (the RGB encoders' whole field in one launch:
    held to K1's plain block and the passes around it), K2 decode_rows
    (3-band), K3 hsync_chase, K4 ccf_ema, K6
    place_rows_uniform and K11 inject_noise from an NTSC step; K2 in conv
@@ -26,10 +26,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    bloom_line_width and K6 in bloom mode from an NTSC do_bloom step; K4
    ccf_ema, K5
    vhs_region_b_entries, K11 over region A and K12 vhs_noise_bc from an
-   NTSCVHS step; K1's block mode with a carrier table a row, K2 on
-   5-sample chroma at 1920-sample lines, K3 and K4 (VP 5) from a PV1K step;
-   K1's block mode and K4 (VP 3) from a SNES step; K1's field mode from
-   the NTSCVHS and bloom steps; K13 nes_square from a NES step, with and
+   NTSCVHS step; K1's field mode at 5-sample chroma with a carrier table a
+   row and 5 burst classes, K2 on 5-sample chroma at 1920-sample lines, K3
+   and K4 (VP 5) from a PV1K step; K1's field mode (3 burst classes) and K4
+   (VP 3) from a SNES step; K1's block mode with a carrier table a row
+   from a NESRGB step; K1's field mode from the NTSCVHS and bloom steps; K13 nes_square from a NES step, with and
    without draw_border (border_color 0x1FF, optimized=False); K11 on each
    of these paths' and on NES's noise inputs;
    K7 on the Y/I/Q rows of the NTSC and PV1K K1 inputs; K8 on the NTSC K2
@@ -57,7 +58,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the rows, W 6, 8 and 16, at batch 5 and 512; K1's field mode on
    NTSC-VHS's and bloom's sizing with pictures that spill past the row end
    onto killed rows, clip at the field's end or start left of the kill's
-   columns, at batch 1, 5 and 33 (FIELD_EDGES); K4 at m 16, VP 5, CC 5 over
+   columns, on PV1K's geometry (5-sample chroma, 5 burst classes) centred
+   and spilling and clipped, on SNES's spilling, at batch 1, 5 and 33
+   (FIELD_EDGES); K4 at m 16, VP 5, CC 5 over
    ragged chunks and at one line; K5 at H 1, 7, 40 and 910 with bands cut
    short and steps past 19H from the seeds 0 and 2**32 - 1;
    bloom_line_width's windows from below 0, spilling, past 2H and wrapping
@@ -82,7 +85,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    port's inside video_exact, fails the run; any other is reported with
    its source line; and one NES batch-1 step (K13, the border, the
    unoptimized build) under set_sync_debug_mode("error"): any
-   synchronizing op fails the run.  Then both benchmark cells' steps at B
+   synchronizing op fails the run.  Then the three benchmark cells' steps at B
    2048 replayed as CUDA graphs (models/graphs.py), 6 steps each, held to
    the same steps run op by op at 0 LSB with equal launch counts, the
    graphs' counter showing a replay on every step after the capture.
@@ -318,7 +321,7 @@ def work_encode_field(a, k, out):
     """K1's field mode: work_encode's ops and chain over the picture's
     samples, plus 6 a sample for the field store's span tests; per other
     field byte 14 (its spans, the mask, the select, the store).  Bytes: K1's
-    inputs and the (B,) and (B, burst_len) arguments, the field written
+    inputs and the (B,) and (B, P, burst_len) arguments, the field written
     once, the constant tables once, and of the caller's field the bytes
     that nothing else writes (found by assembling the field over two
     different caller's fields)."""
@@ -866,9 +869,10 @@ def phase_kernels(pipeline, systems, dev):
                                  "vhs_region_b_entries", "inject_noise",
                                  "vhs_noise_bc"), VHS_KW),
               (systems.NTSC, ("encode_rows_field",), BLOOM),
-              (systems.PV1K, ("encode_rows", "decode_rows", "hsync_chase",
-                              "ccf_ema", "inject_noise"), {}),
-              (systems.SNES, ("encode_rows", "ccf_ema"), {}),
+              (systems.PV1K, ("encode_rows_field", "decode_rows",
+                              "hsync_chase", "ccf_ema", "inject_noise"), {}),
+              (systems.SNES, ("encode_rows_field", "ccf_ema"), {}),
+              (systems.NESRGB, ("encode_rows",), {}),
               (systems.NES, ("nes_square", "inject_noise"), {}),
               (systems.NES, ("nes_square",), NES_BORDER))
     rows = {}
@@ -1020,17 +1024,23 @@ NES_EDGES = ((1, (240, 256), False, 0, 0, None, 0),
 K6_BLOOM_EDGES = ((1, 7, 640, 2, 1, 1, 1), (3, 9, 37, 3, 0, 2, 0),
                   (3, 8, 21, 2, 0, 0, 1), (5, 6, 16, 1, 1, 0, 0),
                   (2, 240, 640, 2, 0, 1, 0), (33, 11, 48, 3, 1, 1, 1))
-# K1's field mode on NTSC-VHS: (batches, do_bloom, xoffset, yoffset, each
-# slot's killed rows in turn, None for no kill): the two cells' sizings, a
-# picture spilling past the row end (its tail on killed rows), rows
-# clipped at the field's end, a picture starting left of the kill's columns
-FIELD_EDGES = (((1, 5, 33, 2048), False, 0, 0, (0, 6, 17)),
-               ((1, 5, 33, 2048), True, 0, 0, None),
-               ((1, 5, 33), True, 0, 0, (17, 0, 6)),
-               ((1, 5, 33), False, 100, 0, (0, 6, 17)),
-               ((1, 5, 33), False, 100, 10, (17, 6, 0)),
-               ((1, 5, 33), False, 0, 12, (6, 17, 0)),
-               ((1, 5, 33), False, -100, 0, (17, 17, 6)))
+# K1's field mode: (system, batches, do_bloom, xoffset, yoffset, each
+# slot's killed rows in turn, None for no kill): on NTSC-VHS the two cells'
+# sizings, a picture spilling past the row end (its tail on killed rows),
+# rows clipped at the field's end, a picture starting left of the kill's
+# columns; 5-sample chroma and 5 burst classes at PV1K's geometry (the
+# cell's: the picture on the first vsync row and over the skeleton's
+# prefix) and spilling; SNES's 3 burst classes
+FIELD_EDGES = (("NTSCVHS", (1, 5, 33, 2048), False, 0, 0, (0, 6, 17)),
+               ("NTSCVHS", (1, 5, 33, 2048), True, 0, 0, None),
+               ("NTSCVHS", (1, 5, 33), True, 0, 0, (17, 0, 6)),
+               ("NTSCVHS", (1, 5, 33), False, 100, 0, (0, 6, 17)),
+               ("NTSCVHS", (1, 5, 33), False, 100, 10, (17, 6, 0)),
+               ("NTSCVHS", (1, 5, 33), False, 0, 12, (6, 17, 0)),
+               ("NTSCVHS", (1, 5, 33), False, -100, 0, (17, 17, 6)),
+               ("PV1K", (1, 5, 33, 2048), False, 0, 0, None),
+               ("PV1K", (1, 5, 33), False, 10, 8, None),
+               ("SNES", (1, 5, 33), False, 100, 0, None))
 DCO_EDGES = (0, -1, -5, -2**31, 2**31 - 1, 4)
 BLACK_EDGES = (0, -40000, 2**31 - 1, -2**31, 123)
 WHITE_EDGES = (100, 2**31 - 1, -9000, 12345)
@@ -1263,32 +1273,35 @@ def ragged_cases(dev):
 
 def field_cases(dev, rng):
     """K1's field mode at FIELD_EDGES: random pictures, carrier tables,
-    burst samples and previous fields, the slots' parities alternating."""
+    burst samples (a set a vertical class) and previous fields, the slots'
+    parities alternating, placed as the system's encoder places them."""
     from ntsc_crt_tpu_torch.models import modulate, systems
-    cfg = systems.NTSCVHS
     t = lambda v: torch.as_tensor(np.ascontiguousarray(v), device=dev)  # noqa
     i32 = lambda lo, hi, n: t(rng.integers(lo, hi, n).astype(np.int32))  # noqa
-    skel, mask_end, vrows = modulate._field_tables(cfg, dev)
     h, w = 48, 64
-    for batches, bloom, xoff, yoff, kills in FIELD_EDGES:
+    for name, batches, bloom, xoff, yoff, kills in FIELD_EDGES:
+        cfg = systems.SYSTEMS[name]
+        skel, mask_end, vrows = modulate._field_tables(cfg, dev)
+        cc = cfg.cc_samples
         destw, desth = modulate._dest_size(cfg, False, w, h, bloom)
-        xo = (cfg.av_beg + xoff + (cfg.av_len - destw) // 2) & ~3
+        xo = cfg.av_beg + xoff + (cfg.av_len - destw) // 2
+        xo -= xo % cc
         yo = cfg.top + yoff + (cfg.lines - desth) // 2
         for B in batches:
             a = (t(rng.integers(0, 256, (B, h, w, 3), dtype=np.uint8)),
-                 i32(0, h, (B, desth)), i32(-32, 33, (B, desth, 4)),
-                 i32(-32, 33, (B, desth, 4)), i32(50, 150, B),
+                 i32(0, h, (B, desth)), i32(-32, 33, (B, desth, cc)),
+                 i32(-32, 33, (B, desth, cc)), i32(50, 150, B),
                  i32(-20, 30, B),
                  t(rng.integers(-128, 128, (B, cfg.vres, cfg.hres),
                                 dtype=np.int8)),
                  skel, mask_end, vrows, t(np.arange(B, dtype=np.int32) % 2),
-                 t(rng.integers(-128, 128, (B, cfg.burst_len),
+                 t(rng.integers(-128, 128, (B, cfg.cc_vper, cfg.burst_len),
                                 dtype=np.int8)),
                  None if kills is None else t(np.resize(
                      np.array(kills, np.int32), B)))
             yield ("encode_rows_field",
-                   f"B {B}, {'bloom' if bloom else 'NTSC'} sizing, xoffset "
-                   f"{xoff}, yoffset {yoff}, kills {kills}", a,
+                   f"{name}, B {B}, {'bloom' if bloom else 'full'} sizing, "
+                   f"xoffset {xoff}, yoffset {yoff}, kills {kills}", a,
                    dict(coefs=modulate._iir_coefs(cfg), xo=xo, yo=yo,
                         destw=destw, cb_beg=cfg.cb_beg, bw_beg=cfg.bw_beg,
                         blank=cfg.blank_level))
@@ -2000,15 +2013,17 @@ def phase_syncs(pipeline, systems, dev, gate=True, vhs_batch=2048):
         raise SystemExit("video_exact synchronizes the stream")
 
 
-GRAPH_CELLS = (  # crt_bench's two cells: (label, system, step keywords)
+GRAPH_CELLS = (  # crt_bench's cells: (label, system, step keywords)
     ("vhs_batch2048", "NTSCVHS", dict(noise=24, do_aberration=1,
                                       mon=dict(saturation=10))),
     ("bloom_batch2048", "NTSC", dict(noise=24, do_bloom=True, mon=dict(
+        blend=1, scanlines=1, saturation=10))),
+    ("pv1k_batch2048", "PV1K", dict(noise=24, mon=dict(
         blend=1, scanlines=1, saturation=10))))
 
 
 def phase_graphs(pipeline, systems, dev, B=2048, steps=6):
-    """Both benchmark cells' steps at B 2048 replayed as CUDA graphs
+    """The benchmark cells' steps at B 2048 replayed as CUDA graphs
     (models/graphs.py) against the same steps run op by op: `steps` steps
     from init_batch, two 640x480 input batches in turn, the parities and
     dot crawl changing per slot and step.  Every leaf equal (0 LSB), each
@@ -2528,8 +2543,7 @@ def main_paths(systems):
             (systems.NTSC, CONV7,
              ("encode_rows_field", "hsync_chase", "ccf_ema",
               "decode_rows_conv", "place_rows_uniform", "inject_noise")),
-            (systems.PV1K, {}, common + ("encode_rows",
-                                         "place_rows_uniform")),
+            (systems.PV1K, {}, ntsc + ("place_rows_uniform",)),
             (systems.NES, {}, common + ("place_rows_uniform", "nes_square")))
 
 
@@ -2878,8 +2892,9 @@ def main() -> int:
                    "place_rows_uniform", "inject_noise"), dev)
     phase_variant(pipeline, systems.NTSC_RAINBOW, {},
                   rgb + ("encode_rows_field",), dev)
-    for cfg in (systems.SNES, systems.TEMPLATE, systems.NESRGB):
-        phase_variant(pipeline, cfg, {}, rgb + ("encode_rows",), dev)
+    for cfg in (systems.SNES, systems.TEMPLATE):
+        phase_variant(pipeline, cfg, {}, rgb + ("encode_rows_field",), dev)
+    phase_variant(pipeline, systems.NESRGB, {}, rgb + ("encode_rows",), dev)
     phase_variant(pipeline, systems.NES, NES_BORDER,
                   ("hsync_chase", "ccf_ema", "decode_rows", "inject_noise",
                    "place_rows_uniform", "nes_square"), dev)

@@ -36,17 +36,19 @@
 // LANE) tiling and unrolled col_map exist only for the TPU's vector unit
 // and are not carried over.
 //
-// Field mode (FIELD, entry ntsc_encode_rows_field, 4-sample chroma): the
-// launch writes the whole modulated field of the NTSC-family encoders,
-// every byte once, into a fresh (B, V, H) tensor.  The block mode's output
-// block and the torch passes around it (the skeleton picked by parity and
-// laid over the caller's field, the burst, the block's store at (yo, xo),
-// VHS's sync kill) each read and wrote the field again: 3.6 of 5.5 ms a
-// step at B 2048 went to passes that copied, selected or overwrote the
-// same bytes.  A byte takes, in order of precedence: VHS's sync kill
-// (blank on the first bw_beg samples of a killed row), the picture, the
-// burst (on the non-vsync rows), the skeleton of the frame's parity (where
-// its mask says), the caller's sample.
+// Field mode (FIELD, entry ntsc_encode_rows_field, 4- or 5-sample chroma):
+// the launch writes the whole modulated field of the RGB encoders (the
+// NTSC family, and SNES, TEMPLATE and PV1K), every byte once, into a fresh
+// (B, V, H) tensor.  The block mode's output block and the torch passes
+// around it (the skeleton picked by parity and laid over the caller's
+// field, the burst, the block's store at (yo, xo), VHS's sync kill) each
+// read and wrote the field again: 3.6 of 5.5 ms a step at B 2048 went to
+// passes that copied, selected or overwrote the same bytes (7.3 of 20.5 ms
+// on PV1K).  A byte takes, in order of precedence: VHS's sync kill (blank
+// on the first bw_beg samples of a killed row), the picture, the burst (on
+// the non-vsync rows; row r takes its frame's burst of class r % burst_p,
+// one class for the NTSC family, cc_vper for the others), the skeleton of
+// the frame's parity (where its mask says), the caller's sample.
 // - Picture blocks store their rows at flat byte (yo + y) * H + xo + t of
 //   the frame, so a row past H runs on into the next row and bytes past
 //   the last row are dropped, and skip the bytes the kill owns.  A warp
@@ -62,9 +64,10 @@
 //   and reads the caller's field only where nothing else writes.  They
 //   are latency-bound and hide behind the picture's int32 work: 16 or 32
 //   bytes a lane, or 8 rows a block, were no faster.
-// At B 2048 on an H100 the launch takes 1.71 ms (NTSC-VHS) and 1.60 ms
-// (bloom's 637 x 232 picture), against 1.59 and 1.34 ms for the block mode
-// alone, which then left 0.85 and 0.71 ms of store and the passes.
+// At B 2048 on an H100 the launch takes 1.71 ms (NTSC-VHS), 1.60 ms
+// (bloom's 637 x 232 picture) and 3.41 ms (PV1K: 5-sample chroma, 1487 x
+// 236 on a 1920 x 262 field), against 1.59, 1.34 and 3.00 ms for the block
+// mode alone, which then left 0.85, 0.71 and 7.3 ms of store and passes.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -84,9 +87,10 @@ struct Field {
     const int* mask_end;   // (V,) the skeleton writes [0, mask_end[r])
     const uint8_t* vrows;  // (V,) 1 on the rows that carry the burst
     const int* parity;     // (B,) each frame's field parity, 0 or 1
-    const int8_t* burst;   // (B, burst_len) each frame's burst samples
+    const int8_t* burst;   // (B, burst_p, burst_len) each frame's burst
+                           // samples by row class r % burst_p
     const int* kill;       // (B,) VHS's killed bottom rows, or null
-    int V, H, xo, yo, cb_beg, burst_len, bw_beg, blank;
+    int V, H, xo, yo, cb_beg, burst_len, burst_p, bw_beg, blank;
     long long pic_blocks;  // blocks of picture rows
     long long frame_blocks;  // blocks of 32 field rows
 };
@@ -130,6 +134,7 @@ __device__ void frame_rows(const Field& f, uint8_t* __restrict__ out, int B,
     const int spill =
         y - 1 >= 0 && y - 1 < desth ? f.xo + destw - H : 0;
     const int par = f.parity[b];
+    const int cls = r % f.burst_p;
     const bool vr = f.vrows[r] != 0;
     const int mend = f.mask_end[r];
     const int nr = (int)min((long long)WARP_ROWS, nrows - row0);
@@ -141,12 +146,14 @@ __device__ void frame_rows(const Field& f, uint8_t* __restrict__ out, int B,
         const int qhi = __shfl_sync(0xffffffffu, hi, q);
         const int qspill = __shfl_sync(0xffffffffu, spill, q);
         const int qpar = __shfl_sync(0xffffffffu, par, q);
+        const int qcls = __shfl_sync(0xffffffffu, cls, q);
         const bool qvr = __shfl_sync(0xffffffffu, (int)vr, q) != 0;
         const int qmend = __shfl_sync(0xffffffffu, mend, q);
         const long long at = ((long long)qb * V + qr) * H;
         const int8_t* sk = f.skel + ((long long)qpar * V + qr) * H;
         const int8_t* pv = f.prev + at;
-        const int8_t* bu = f.burst + (long long)qb * f.burst_len;
+        const int8_t* bu =
+            f.burst + ((long long)qb * f.burst_p + qcls) * f.burst_len;
         uint8_t* o = out + at;
         const int n = qlo + (H - qhi);  // [0, lo) then [hi, H)
         for (int k0 = 0; k0 < n; k0 += FRAME_BATCH * WARP_ROWS) {
@@ -388,6 +395,7 @@ int launch(const uint8_t* img, const int* sy, const int* modI,
     return (int)cudaGetLastError();
 }
 
+template <int CC>
 int launch_field(const uint8_t* img, const int* sy, const int* modI,
                  const int* modQ, const int* gain, const int* base,
                  uint8_t* out, int B, int h, int w, int desth, int destw,
@@ -398,9 +406,9 @@ int launch_field(const uint8_t* img, const int* sy, const int* modI,
     f.frame_blocks = ((long long)B * f.V + WARP_ROWS - 1) / WARP_ROWS;
     const long long blocks = f.pic_blocks + f.frame_blocks;
     if (blocks == 0) return (int)cudaSuccess;
-    encode_rows_kernel<4, true><<<(unsigned)blocks, WARP_ROWS, 0, stream>>>(
+    encode_rows_kernel<CC, true><<<(unsigned)blocks, WARP_ROWS, 0, stream>>>(
         img, sy, modI, modQ, gain, base, out, B, h, w, desth, destw,
-        f.xo % 4, bandlimit, cY, cI, cQ, false, f);
+        f.xo % CC, bandlimit, cY, cI, cQ, false, f);
     return (int)cudaGetLastError();
 }
 
@@ -423,9 +431,9 @@ extern "C" int ntsc_encode_rows(
     return (int)cudaErrorInvalidValue;
 }
 
-// The field mode (4-sample chroma, the NTSC family): out (B, V, H) is
-// written whole; prev is only read.  kill may be null (no VHS kill).
-// Needs 0 <= xo < H, 0 <= yo and destw < H.
+// The field mode (cc 4 or 5): out (B, V, H) is written whole; prev is only
+// read.  burst is (B, burst_p, burst_len); kill may be null (no VHS kill).
+// Needs 0 <= xo < H, 0 <= yo, destw < H and burst_p >= 1.
 extern "C" int ntsc_encode_rows_field(
     const void* img, const void* sy, const void* modI, const void* modQ,
     const void* gain, const void* base, void* out, const void* prev,
@@ -433,16 +441,20 @@ extern "C" int ntsc_encode_rows_field(
     const void* parity, const void* burst, const void* kill, int B, int h,
     int w, int desth, int destw, int cc, int bandlimit, int cY, int cI,
     int cQ, int V, int H, int xo, int yo, int cb_beg, int burst_len,
-    int bw_beg, int blank, void* stream) {
-    if (cc != 4 || xo < 0 || xo >= H || yo < 0 || destw >= H)
+    int burst_p, int bw_beg, int blank, void* stream) {
+    if ((cc != 4 && cc != 5) || xo < 0 || xo >= H || yo < 0 || destw >= H ||
+        burst_p < 1)
         return (int)cudaErrorInvalidValue;
     auto s = static_cast<cudaStream_t>(stream);
     Field f{(const int8_t*)prev, (const int8_t*)skel, (const int*)mask_end,
             (const uint8_t*)vrows, (const int*)parity, (const int8_t*)burst,
-            (const int*)kill, V, H, xo, yo, cb_beg, burst_len, bw_beg, blank,
-            0, 0};
-    return launch_field((const uint8_t*)img, (const int*)sy,
-                        (const int*)modI, (const int*)modQ,
-                        (const int*)gain, (const int*)base, (uint8_t*)out, B,
-                        h, w, desth, destw, bandlimit, cY, cI, cQ, f, s);
+            (const int*)kill, V, H, xo, yo, cb_beg, burst_len, burst_p,
+            bw_beg, blank, 0, 0};
+    auto args = [&](auto fn) {
+        return fn((const uint8_t*)img, (const int*)sy, (const int*)modI,
+                  (const int*)modQ, (const int*)gain, (const int*)base,
+                  (uint8_t*)out, B, h, w, desth, destw, bandlimit, cY, cI,
+                  cQ, f, s);
+    };
+    return cc == 4 ? args(launch_field<4>) : args(launch_field<5>);
 }

@@ -19,19 +19,20 @@ the field is built in three phases:
    waves are kernel K13 (ops/kernels/nes.py), which stores its block itself
    (the JAX package leaves that pass to XLA).
 
-On the card the NTSC family (``modulate_rgb``, ``modulate_vhs``) writes the
-three phases and VHS's sync kill in one launch, K1's field mode
-(``encode.encode_field``), each byte of the new field once; its plain
+On the card the NTSC family (``modulate_rgb``, ``modulate_vhs``) and the
+vper encoders (``modulate_vper``) write the three phases and VHS's sync
+kill in one launch, K1's field mode (``encode.encode_field``), each byte of
+the new field once, the burst laid by each row's vertical class; its plain
 version, the CPU's path, makes the passes one after another
-(``encode.assemble_field``), as the line split does around K1's block.
+(``encode.assemble_field``), as the line split does around K1's block
+(``_write_field``).
 
 Under a profiler the carrier and burst tables (and VHS's draw) record the
 span ``ntsc.modulate.field``, and the field's bytes ``ntsc.modulate.encode``
 (``utils/profiling.py`` ``span``); NES's one kernel is its ``encode``.
-Inside ``encode`` the vper and NESRGB encoders' full-field passes record
-their own spans: the skeleton laid over the field and the burst stored
-into it ``ntsc.modulate.skeleton``, K1's block stored into the field
-``ntsc.modulate.store``.
+Inside ``encode`` NESRGB's full-field passes record their own spans: the
+skeleton and the burst stored into it ``ntsc.modulate.skeleton``, K1's
+block stored into the field ``ntsc.modulate.store``.
 
 Each family writes its new field's bytes in one call through
 ``graphs.eager``: under a CUDA graph of the step (models/graphs.py) that
@@ -158,20 +159,13 @@ def video_rows_mask(cfg: SystemConfig) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def _field_constants(cfg: SystemConfig, device: torch.device):
-    """(skel_even, skel_odd, write_mask, video_rows) on `device`, copied
-    once: a copy from host memory in every step would stall the host until
-    the device drained."""
-    return tuple(torch.as_tensor(a, device=device)
-                 for a in build_skeletons(cfg) + (video_rows_mask(cfg),))
-
-
-@functools.lru_cache(maxsize=16)
 def _field_tables(cfg: SystemConfig, device: torch.device):
     """(skel (2, VRES, HRES) int8, even parity's then odd's, mask_end
-    (VRES,) int32, video_rows) on `device`: K1's field mode's constants.
-    The skeleton writes a prefix of every row (its blanked rows whole, a
-    picture row up to av_beg), mask_end[r] samples of row r."""
+    (VRES,) int32, video_rows) on `device`: K1's field mode's constants,
+    copied once (a copy from host memory in every step would stall the host
+    until the device drained).  The skeleton writes a prefix of every row
+    (its blanked rows whole, a picture row up to av_beg), mask_end[r]
+    samples of row r."""
     skel_even, skel_odd, mask = build_skeletons(cfg)
     mask_end = mask.sum(axis=1).astype(np.int32)
     if not (mask == (np.arange(cfg.hres) < mask_end[:, None])).all():
@@ -329,20 +323,29 @@ def _modulate_ntsc(cfg, analog, img, randstate, do_aberration, *, field,
                 per_row(ccmodI), per_row(ccmodQ),
                 cdiv(cfg.white_level * white_point, 100),
                 cfg.black_level + black_point)
-        frame_args = (analog, *_field_tables(cfg, dev), field, burst, kill)
-        kw = dict(xo=xo, yo=yo, cb_beg=cfg.cb_beg, bw_beg=cfg.bw_beg,
-                  blank=cfg.blank_level)
-        if spatial.active() or not (0 <= xo < cfg.hres and yo >= 0):
-            # the block split by line (or a placement the field mode does
-            # not take), then the passes
-            ire = _encode_lines(*rows, coefs=_iir_coefs(cfg),
-                                xo_mod=xo % CC, destw=destw)
-            analog = encode.assemble_field(analog, ire, *frame_args[1:],
-                                           **kw)
-        else:
-            analog = graphs.eager(encode.encode_field, *rows, *frame_args,
-                                  coefs=_iir_coefs(cfg), destw=destw, **kw)
+        analog = _write_field(cfg, rows, analog, field, burst[:, None], kill,
+                              xo=xo, yo=yo, destw=destw)
         return analog, ccf, randstate
+
+
+def _write_field(cfg: SystemConfig, rows, analog, parity, burst, kill, *,
+                 xo: int, yo: int, destw: int) -> torch.Tensor:
+    """The RGB encoders' new field from K1's arguments `rows` (image, source
+    rows, per-row carrier tables, gain, base), the caller's field, each
+    frame's parity, its burst (B, P, burst_len) by row class r % P and VHS's
+    kill (or None): K1's field mode in one launch; under the line split, or
+    at a placement the field mode does not take, K1's block split by line
+    and then the passes (encode.assemble_field)."""
+    frame_args = (analog, *_field_tables(cfg, analog.device), parity, burst,
+                  kill)
+    kw = dict(xo=xo, yo=yo, cb_beg=cfg.cb_beg, bw_beg=cfg.bw_beg,
+              blank=cfg.blank_level)
+    if spatial.active() or not (0 <= xo < cfg.hres and yo >= 0):
+        ire = _encode_lines(*rows, coefs=_iir_coefs(cfg),
+                            xo_mod=xo % cfg.cc_samples, destw=destw)
+        return encode.assemble_field(analog, ire, *frame_args[1:], **kw)
+    return graphs.eager(encode.encode_field, *rows, *frame_args,
+                        coefs=_iir_coefs(cfg), destw=destw, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -409,17 +412,23 @@ def _vper_tables(cfg: SystemConfig, dco: torch.Tensor, base, burst_base,
     return b_sn >> 10, i_sn >> 10, q_sn >> 10
 
 
+def _vper_rows(cfg: SystemConfig, img, sy, modI, modQ, black_point,
+               white_point, yo: int):
+    """K1's arguments with each picture row's table picked by its field
+    row's vertical class (y + yo) % VP."""
+    phr = (torch.arange(sy.shape[1], device=sy.device) + yo) % cfg.cc_vper
+    return (img.to(torch.uint8).contiguous(), sy.contiguous(),
+            modI[:, phr].contiguous(), modQ[:, phr].contiguous(),
+            cdiv(cfg.white_level * white_point, 100),
+            cfg.black_level + black_point)
+
+
 def _encode_vper(cfg: SystemConfig, analog, img, sy, modI, modQ,
                  black_point, white_point, xo: int, yo: int, destw: int,
                  coefs) -> torch.Tensor:
-    """K1 with each picture row's table picked by its field row's vertical
-    class (y + yo) % VP, then the store at (yo, xo)."""
-    desth = sy.shape[1]
-    phr = (torch.arange(desth, device=analog.device) + yo) % cfg.cc_vper
-    ire = _encode_lines(img, sy, modI[:, phr].contiguous(),
-                        modQ[:, phr].contiguous(),
-                        cdiv(cfg.white_level * white_point, 100),
-                        cfg.black_level + black_point, coefs=coefs,
+    """K1's block over _vper_rows, then the store at (yo, xo)."""
+    ire = _encode_lines(*_vper_rows(cfg, img, sy, modI, modQ, black_point,
+                                    white_point, yo), coefs=coefs,
                         xo_mod=xo % cfg.cc_samples, destw=destw)
     with profiling.span("modulate.store"):
         return fastpath.store_active(analog, ire, xo, yo)
@@ -475,6 +484,9 @@ def modulate_vper(
         src = (torch.arange(VP, device=dev) - 3) % VP
         ccf = ((cfg.blank_level + ccburst[:, src] * cfg.burst_level)
                >> 5) << 7
+        # the burst's samples by vertical class: field row n takes class
+        # n % VP
+        burst = _burst_rows(ccburst, cfg, 0, VP)
 
     with profiling.span("modulate.encode"):
         y_idx = torch.arange(desth, dtype=torch.int32, device=dev)[None, :]
@@ -484,30 +496,11 @@ def modulate_vper(
             field_offset = torch.zeros((B, 1), dtype=torch.int32,
                                        device=dev)
         sy = ((y_idx * h) // desth + field_offset).clamp(max=h - 1)
-        analog = graphs.eager(_vper_field, cfg, analog, img, field, ccburst,
-                              sy, ccmodI, ccmodQ, black_point, white_point,
-                              xo=xo, yo=yo, destw=destw,
-                              coefs=_iir_coefs(cfg))
+        rows = _vper_rows(cfg, img, sy, ccmodI, ccmodQ, black_point,
+                          white_point, yo)
+        analog = _write_field(cfg, rows, analog, field, burst, None, xo=xo,
+                              yo=yo, destw=destw)
         return analog, ccf
-
-
-def _vper_field(cfg: SystemConfig, analog, img, field, ccburst, sy, modI,
-                modQ, black_point, white_point, *, xo: int, yo: int,
-                destw: int, coefs) -> torch.Tensor:
-    """modulate_vper's new field: the parity's skeleton laid over the
-    caller's field, the burst on every video row by its vertical class,
-    K1's block stored at (yo, xo)."""
-    with profiling.span("modulate.skeleton"):
-        skel_even, skel_odd, mask, vrows = _field_constants(cfg,
-                                                            analog.device)
-        skel = torch.where((field == 1)[:, None, None], skel_odd, skel_even)
-        analog = torch.where(mask, skel, analog)
-        burst = slice(cfg.cb_beg, cfg.cb_beg + cfg.burst_len)
-        analog[:, :, burst] = torch.where(
-            vrows[None, :, None], _burst_rows(ccburst, cfg, 0, cfg.vres),
-            analog[:, :, burst])
-    return _encode_vper(cfg, analog, img, sy, modI, modQ, black_point,
-                        white_point, xo, yo, destw, coefs)
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # entry point -> argument kinds: "p" pointer or stream, "i" C int
 _SIGNATURES = {
     "ntsc_encode_rows": "ppppppp" + "i" * 11 + "p",
-    "ntsc_encode_rows_field": "p" * 14 + "i" * 18 + "p",
+    "ntsc_encode_rows_field": "p" * 14 + "i" * 19 + "p",
     "ntsc_hsync_chase": "ppppp" + "i" * 8 + "p",
     "ntsc_decode_rows": "p" * 11 + "i" * 9 + "p",
     "ntsc_bloom_line_width": "ppppp" + "i" * 5 + "p",

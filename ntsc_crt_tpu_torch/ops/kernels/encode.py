@@ -11,9 +11,10 @@ CPU tensor runs the plain torch version below (the portable encode of
 ``models/modulate.py:424-434``); a CUDA tensor launches csrc/encode.cu.
 
 ``encode_field`` is K1's field mode: the same rows, stored with the rest of
-the NTSC-family field (skeleton, burst, VHS's sync kill, the caller's kept
-samples) by one launch into a fresh field.  Its plain version is the
-assembly the torch passes make around the block (``assemble_field``).
+the RGB encoders' field (skeleton, burst by row class, VHS's sync kill, the
+caller's kept samples) by one launch into a fresh field.  Its plain version
+is the assembly the torch passes make around the block
+(``assemble_field``).
 """
 
 from __future__ import annotations
@@ -102,10 +103,11 @@ def encode_field(img, sy, modI, modQ, gain, base, analog, skel, mask_end,
     (2, V, H), the even and odd parity's skeletons; mask_end int32 (V,), the
     skeleton's write mask as each row's prefix; vrows bool (V,), the rows that
     carry the burst (and can be killed); parity int32 (B,) 0 or 1; burst
-    int8 (B, burst_len) from column cb_beg; kill int32 (B,), each frame's
-    killed bottom rows (rows >= V - kill among vrows), or None.  The
-    kernel takes 4-sample chroma (the NTSC family), 0 <= xo < H, 0 <= yo
-    and destw < H."""
+    int8 (B, P, burst_len) from column cb_beg, row r taking burst[:, r % P]
+    (P = 1 for the NTSC family, cc_vper for the encoders whose burst
+    varies by row); kill int32 (B,), each frame's killed bottom rows (rows
+    >= V - kill among vrows), or None.  The kernel takes 4- or 5-sample
+    chroma, 0 <= xo < H, 0 <= yo and destw < H."""
     if img.device.type == "cpu":
         return encode_field_plain(
             img, sy, modI, modQ, gain, base, analog, skel, mask_end,
@@ -128,15 +130,17 @@ def encode_field(img, sy, modI, modQ, gain, base, analog, skel, mask_end,
     build.check("mask_end", mask_end, torch.int32, (V,), dev)
     build.check("vrows", vrows, torch.bool, (V,), dev)
     build.check("parity", parity, torch.int32, (B,), dev)
-    build.check("burst", burst, torch.int8, (B, burst.shape[1]), dev)
+    build.check("burst", burst, torch.int8, (B, *burst.shape[1:]), dev)
     if kill is not None:
         build.check("kill", kill, torch.int32, (B,), dev)
-    if cc != 4:
-        raise ValueError(f"encode_field: cc must be 4, got {cc}")
+    if cc not in (4, 5) or burst.dim() != 3 or burst.shape[1] < 1:
+        raise ValueError(f"encode_field: needs cc 4 or 5 and a (B, P, "
+                         f"burst_len) burst, got cc {cc}, burst "
+                         f"{tuple(burst.shape)}")
     if not (0 <= xo < H and yo >= 0 and destw < H):
         raise ValueError(f"encode_field: needs 0 <= xo < H, yo >= 0 and "
                          f"destw < H, got xo {xo}, yo {yo}, destw {destw}")
-    if not (0 <= cb_beg and cb_beg + burst.shape[1] <= H and bw_beg <= H):
+    if not (0 <= cb_beg and cb_beg + burst.shape[2] <= H and bw_beg <= H):
         raise ValueError("encode_field: the burst and the kill must lie "
                          "inside a row")
     out = torch.empty((B, V, H), dtype=torch.int8, device=dev)
@@ -148,7 +152,7 @@ def encode_field(img, sy, modI, modQ, gain, base, analog, skel, mask_end,
                  vrows.data_ptr(), parity.data_ptr(), burst.data_ptr(),
                  None if kill is None else kill.data_ptr(), B, h, w, desth,
                  destw, cc, int(coefs is not None), cY, cI, cQ, V, H, xo, yo,
-                 cb_beg, burst.shape[1], bw_beg, blank)
+                 cb_beg, burst.shape[2], burst.shape[1], bw_beg, blank)
     return out
 
 
@@ -168,22 +172,22 @@ def encode_field_plain(img, sy, modI, modQ, gain, base, analog, skel,
 def assemble_field(analog, ire, skel, mask_end, vrows, parity, burst, kill,
                    *, xo: int, yo: int, cb_beg: int, bw_beg: int,
                    blank: int) -> torch.Tensor:
-    """The NTSC-family field around K1's block ire (B, desth, destw), pass
-    by pass (crt_ntsc.c:205-252, 322; crt_ntscvhs.c:234-238): the skeleton
-    of each frame's parity over the caller's field where it writes, the burst
-    on `vrows`, the block at (yo, xo) (fastpath.store_active), then VHS's
-    kill.  Arguments as encode_field's; returns a new field, `analog`
-    unchanged."""
-    H = analog.shape[2]
-    mask = (torch.arange(H, device=analog.device)[None, :]
-            < mask_end[:, None])
+    """The RGB encoders' field around K1's block ire (B, desth, destw), pass
+    by pass (crt_ntsc.c:205-252, 322; crt_ntscvhs.c:234-238; crt_snes.c
+    and its kin alike): the skeleton of each frame's parity over the
+    caller's field where it writes, the burst on `vrows` by row class, the
+    block at (yo, xo) (fastpath.store_active), then VHS's kill.  Arguments
+    as encode_field's; returns a new field, `analog` unchanged."""
+    V, H = analog.shape[1], analog.shape[2]
+    dev = analog.device
+    mask = torch.arange(H, device=dev)[None, :] < mask_end[:, None]
     skel = torch.where((parity == 1)[:, None, None], skel[1], skel[0])
     out = torch.where(mask, skel, analog)
-    seg = out[:, :, cb_beg:cb_beg + burst.shape[1]]
-    seg.copy_(torch.where(vrows[None, :, None], burst[:, None, :], seg))
+    seg = out[:, :, cb_beg:cb_beg + burst.shape[2]]
+    by_row = burst[:, torch.arange(V, device=dev) % burst.shape[1]]
+    seg.copy_(torch.where(vrows[None, :, None], by_row, seg))
     out = fastpath.store_active(out, ire, xo, yo)
     if kill is not None:
-        V = out.shape[1]
         rows = torch.arange(V, dtype=torch.int32, device=out.device)
         dead = vrows[None, :] & (rows[None, :] >= V - kill[:, None])
         out[:, :, :bw_beg].masked_fill_(dead[:, :, None], blank)

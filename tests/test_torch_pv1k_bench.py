@@ -3,10 +3,11 @@ the CPU: the vper encoder's reference (``crt_bench/reference_vper``)
 bit-exact to the JAX package's PV1K, SNES and TEMPLATE steps and to the
 ``PV1K`` / ``PV1K_b16`` goldens; the port's ``step_batch`` on PV1K
 bit-exact to the reference over a sequence of per-slot parities; what the
-reference and the cell's driver import; and the port's
-``ntsc.modulate.skeleton`` / ``ntsc.modulate.store`` spans.  The test
-marked `gpu` holds the cell's step on the card to the 5-sample kernels
-and skips without one.
+reference and the cell's driver import; NESRGB's
+``ntsc.modulate.skeleton`` / ``ntsc.modulate.store`` spans, and the vper
+encoders' field written by one call of K1's field mode.  The test marked
+`gpu` holds the cell's step on the card to the 5-sample kernels and skips
+without one.
 
 The JAX package is held slot by slot, each slot's step run alone: its
 batched step picks every slot's vsync line from slot 0's candidates
@@ -183,16 +184,36 @@ def _spans_of(event):
     return chain
 
 
+def _profiled_step(cfg):
+    """The profiler's events of a B 1 step at 64x48 (after one unprofiled
+    step)."""
+    z = torch.zeros(1, dtype=torch.int32)
+    img = torch.randint(0, 256, (1, 24, 32, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(23))
+    st = pipeline.init_batch(cfg, 1, 64, 48, device="cpu")
+    pipeline.step_batch(cfg, st, img, z, z, z, noise=12)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pipeline.step_batch(cfg, st, img, z, z, z, noise=12)
+    return prof.events()
+
+
+def _inside(event, name):
+    """Whether a profiler range called `name` encloses the event."""
+    p = event.cpu_parent
+    while p is not None and p.name != name:
+        p = p.cpu_parent
+    return p is not None
+
+
 @pytest.mark.usefixtures("replay")
-@pytest.mark.parametrize("name", ["PV1K", "NESRGB"])
+@pytest.mark.parametrize("name", ["NESRGB"])
 def test_the_skeleton_and_store_spans_hold_the_field_passes(name,
                                                             monkeypatch):
-    """A step of a vper or NESRGB encoder records ntsc.modulate.skeleton
-    and then ntsc.modulate.store inside ntsc.modulate.encode, once each:
-    the skeleton holds the three field-wide `where`s (PV1K) or the
-    skeleton's copy (NESRGB) and the burst's rows, the store holds
-    store_active alone, and K1 runs inside neither.  An NTSC step records
-    neither span.  The kernels replay their unprofiled results
+    """A step of the NESRGB encoder records ntsc.modulate.skeleton and
+    then ntsc.modulate.store inside ntsc.modulate.encode, once each: the
+    skeleton holds the skeleton's copy and the burst's rows, the store
+    holds store_active alone, and K1 runs inside neither.  An NTSC step
+    records neither span.  The kernels replay their unprofiled results
     (`replay`)."""
     monkeypatch.setattr(modulate, "_burst_rows",
                         _marked("test.burst_rows", modulate._burst_rows))
@@ -200,16 +221,9 @@ def test_the_skeleton_and_store_spans_hold_the_field_passes(name,
                         _marked("test.store_active", fastpath.store_active))
     monkeypatch.setattr(encode, "encode_rows",
                         _marked("test.encode_rows", encode.encode_rows))
-    z = torch.zeros(1, dtype=torch.int32)
-    img = torch.randint(0, 256, (1, 24, 32, 3), dtype=torch.uint8,
-                        generator=torch.Generator().manual_seed(23))
     new = ("ntsc.modulate.skeleton", "ntsc.modulate.store")
     for cfg in (systems.SYSTEMS[name], systems.NTSC):
-        st = pipeline.init_batch(cfg, 1, 64, 48, device="cpu")
-        pipeline.step_batch(cfg, st, img, z, z, z, noise=12)
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            pipeline.step_batch(cfg, st, img, z, z, z, noise=12)
-        events = prof.events()
+        events = _profiled_step(cfg)
         spans = sorted((e for e in events if e.name in new),
                        key=lambda e: e.time_range.start)
         if cfg is systems.NTSC:
@@ -225,23 +239,54 @@ def test_the_skeleton_and_store_spans_hold_the_field_passes(name,
                 inner.setdefault(chain[0], []).append(e.name)
         skel = inner["ntsc.modulate.skeleton"]
         assert "test.burst_rows" in skel
-        if name == "PV1K":
-            assert skel.count("aten::where") == 3
-        else:
-            assert "aten::clone" in skel
+        assert "aten::clone" in skel
         store = [c for c in spans[1].cpu_children]
         assert [c.name for c in store] == ["test.store_active"]
         assert "aten::copy_" in [c.name for c in store[0].cpu_children]
         assert "test.encode_rows" in inner["ntsc.modulate.encode"]
 
 
+@pytest.mark.usefixtures("replay")
+@pytest.mark.parametrize("name", ["PV1K", "SNES", "TEMPLATE"])
+def test_the_vper_field_is_one_field_mode_call(name, monkeypatch):
+    """A step of a vper encoder writes its field by one call of K1's field
+    mode (encode.encode_field) inside ntsc.modulate.encode, after its burst
+    by vertical class was formed in ntsc.modulate.field: it records neither
+    ntsc.modulate.skeleton nor ntsc.modulate.store, and nothing of the
+    encode span outside that call selects over the field (no `aten::where`)
+    or stores into it (no store_active, no K1 block)."""
+    monkeypatch.setattr(modulate, "_burst_rows",
+                        _marked("test.burst_rows", modulate._burst_rows))
+    monkeypatch.setattr(encode, "encode_field",
+                        _marked("test.encode_field", encode.encode_field))
+    monkeypatch.setattr(fastpath, "store_active",
+                        _marked("test.store_active", fastpath.store_active))
+    monkeypatch.setattr(encode, "encode_rows",
+                        _marked("test.encode_rows", encode.encode_rows))
+    events = _profiled_step(systems.SYSTEMS[name])
+    names = [e.name for e in events]
+    assert "ntsc.modulate.skeleton" not in names
+    assert "ntsc.modulate.store" not in names
+    calls = [e for e in events if e.name == "test.encode_field"]
+    assert len(calls) == 1
+    assert calls[0].cpu_parent.name == "ntsc.modulate.encode"
+    bursts = [e for e in events if e.name == "test.burst_rows"]
+    assert len(bursts) == 1
+    assert bursts[0].cpu_parent.name == "ntsc.modulate.field"
+    outside = [e.name for e in events
+               if _inside(e, "ntsc.modulate.encode")
+               and not _inside(e, "test.encode_field")]
+    for op in ("aten::where", "test.store_active", "test.encode_rows"):
+        assert op not in outside, (op, outside)
+
+
 @pytest.mark.gpu
 def test_the_cells_step_runs_the_5_sample_kernels():
     """One B 2048 step of the PV1K cell (640x480, noise 24, blend 1,
-    scanlines 1) under the profiler launches K1's block mode, K2's 3-band
+    scanlines 1) under the profiler launches K1's field mode, K2's 3-band
     mode and K4 at CC 5 once each, no other instantiation of K1 or K2 (so
     the K1 and K2 rooflines read the 5-sample kernels alone), and no K1
-    field mode; the skeleton and store spans are on the trace."""
+    block; neither the skeleton nor the store span is on the trace."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels compile and run only "
                     "there")
@@ -259,16 +304,18 @@ def test_the_cells_step_runs_the_5_sample_kernels():
         st = pipeline.step_batch(PV1K, st, img, field, field, field * 0,
                                  noise=24, mon=mon)
         torch.cuda.synchronize()
-    for name in ("encode_rows", "decode_rows", "ccf_ema"):
+    for name in ("encode_rows_field", "decode_rows", "ccf_ema"):
         assert build.LAUNCHES[name] == 1, (name, dict(build.LAUNCHES))
-    assert build.LAUNCHES["encode_rows_field"] == 0
+    assert build.LAUNCHES["encode_rows"] == 0
     names = [e.name for e in prof.events()]
     kernels = [n for n in names if "_kernel" in n]
     for func in ("encode_rows_kernel", "decode_rows_kernel"):
         launched = [n for n in kernels if func in n]
         assert len(launched) == 1, (func, kernels)
         assert func + "<5," in launched[0] or func + "ILi5E" in launched[0]
+    k1 = next(n for n in kernels if "encode_rows_kernel" in n)
+    assert "<5, true>" in k1 or "ILi5ELb1EE" in k1, k1
     assert [n for n in kernels if "ccf_ema_kernel" in n
             and ("<5, 10, 5>" in n or "ILi5ELi10ELi5E" in n)]
     for span in ("ntsc.modulate.skeleton", "ntsc.modulate.store"):
-        assert names.count(span) >= 1, span
+        assert span not in names, span
