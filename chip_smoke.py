@@ -2147,21 +2147,16 @@ def phase_path(pipeline, cfg, kw, needed, card, dev, steps1=20, stepsB=5):
 
     from ntsc_crt_tpu_torch.models import demodulate as dem
     from ntsc_crt_tpu_torch.models import graphs
-    general = []
     failed, replays = dict(graphs.FAILURES), graphs.GRAPHS["replays"]
-
-    def note(name, fn):
-        def run(*a, **k):
-            general.append(name)
-            return fn(*a, **k)
-        return run
-
-    with patched([(dem, "_place_rows_general")], note):
-        launches, (r1, rB) = counted(
-            f"{label} main path, {steps1 + stepsB + 4} steps", needed, both)
-    if general:
+    dem.PLACEMENTS.clear()
+    launches, (r1, rB) = counted(
+        f"{label} main path, {steps1 + stepsB + 4} steps", needed, both)
+    print(f"{label} main path: placements {dict(dem.PLACEMENTS)}",
+          flush=True)
+    if dem.PLACEMENTS["general"]:
         raise SystemExit(f"{label}: the general row placement (per-row "
-                         f"gathers) ran {len(general)} times on a main path")
+                         f"gathers) ran {dem.PLACEMENTS['general']} times on "
+                         "a main path")
     new = [v for k, v in graphs.FAILURES.items() if k not in failed]
     print(f"{label} main path: {graphs.GRAPHS['replays'] - replays} steps "
           f"replayed as CUDA graphs; failed captures {new or 'none'}",

@@ -31,7 +31,8 @@ CRT_DO_HSYNC = 0).  Each stage keeps one formulation, the plain one:
 Under a profiler each stage records its span (``utils/profiling.py``
 ``span``): ``ntsc.demodulate.noise``, ``.vsync``, ``.line_scan``, with
 bloom ``.bloom`` (the line widths and the rotated wave tables), ``.decode``
-and ``.place``.
+and ``.place``.  `PLACEMENTS` counts the row placements by the path each
+took.
 
 K11 and the row placement are calls through ``graphs.eager``: under a CUDA
 graph of the step (models/graphs.py) they stay eager, K11 because it reads
@@ -42,6 +43,7 @@ returns a fresh one.
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import NamedTuple, Union
 
@@ -60,6 +62,10 @@ from ntsc_crt_tpu_torch.parallel import spatial
 from ntsc_crt_tpu_torch.utils import profiling
 
 Knob = Union[int, torch.Tensor]
+# _place_rows calls by the path each took: "uniform" (K6), "uniform_bloom"
+# (K6's bloom mode) or "general" (_place_rows_general); counted in the
+# call, which graphs.eager makes on every replay too
+PLACEMENTS: collections.Counter = collections.Counter()
 
 
 class MonitorParams(NamedTuple):
@@ -463,10 +469,12 @@ def _place_rows(rgb, out_prev, beg_l, end_l, active_l, blend, scanlines,
         ratio = (outh + v_fac) // L
         if 0 <= scanlines < ratio and outh == ratio * L:
             fp = ((((outh << 16) // L) + 32768) >> 16) // 2
+            PLACEMENTS["uniform" if bloom is None else "uniform_bloom"] += 1
             return place.place_rows_uniform(
                 rgb, out_prev, field_px.contiguous(), blend=bool(blend),
                 scanlines=int(scanlines), ratio=ratio, fp=fp,
                 **(bloom or {}))
+    PLACEMENTS["general"] += 1
     valid = None if bloom is None else bloom_drawn(**bloom,
                                                    outw=rgb.shape[2])
     return _place_rows_general(rgb, out_prev, beg_l, end_l, active_l, blend,
