@@ -32,7 +32,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (VP 3) from a SNES step; K1's block mode with a carrier table a row
    from a NESRGB step; K1's field mode from the NTSCVHS and bloom steps; K13 nes_square from a NES step, with and
    without draw_border (border_color 0x1FF, optimized=False); K11 on each
-   of these paths' and on NES's noise inputs;
+   of these paths' and on NES's noise inputs; K6's general mode
+   place_rows_general from a NES step into LiveSession's 832x624 (off the
+   uniform gate) at 1, 64 and 512;
    K7 on the Y/I/Q rows of the NTSC and PV1K K1 inputs; K8 on the NTSC K2
    inputs' Y/I/Q rows, K9 on K8's output, and the unfused chain against K2;
    K2 (each mode), K3 and bloom_line_width read their lines in place from
@@ -181,6 +183,7 @@ from ntsc_crt_tpu_torch.utils.profiling import (device_ms, kernel_of,
 GOLDENS = (Path(__file__).resolve().parent / "tests" / "fixtures"
            / "device_parity_goldens.npz")
 OUTW, OUTH = 640, 480
+LIVE_SIZE = (832, 624)     # LiveSession's window: off K6's uniform gate
 ORIGIN = {  # kernel -> (CUDA source, the Pallas kernel's pallas_call)
     "encode_rows": ("ntsc_crt_tpu_torch/csrc/encode.cu",
                     "ntsc_crt_tpu/ops/pallas/encode_fused.py:179"),
@@ -220,6 +223,10 @@ ORIGIN = {  # kernel -> (CUDA source, the Pallas kernel's pallas_call)
     # plane) to its general placement, XLA's row gathers
     "place_rows_uniform_bloom": ("ntsc_crt_tpu_torch/csrc/place.cu",
                                  "ntsc_crt_tpu/models/demodulate.py:1314"),
+    # no Pallas kernel: off the uniform gate the JAX decoder places rows
+    # with its cover mask and XLA's row gathers
+    "place_rows_general": ("ntsc_crt_tpu_torch/csrc/place.cu",
+                           "ntsc_crt_tpu/models/demodulate.py:1289"),
     "iir_lowpass_rows": ("ntsc_crt_tpu_torch/csrc/rowfilters.cu",
                          "ntsc_crt_tpu/ops/pallas/filters_pallas.py:173"),
     "eq_threeband_rows": ("ntsc_crt_tpu_torch/csrc/rowfilters.cu",
@@ -454,6 +461,51 @@ def work_place(a, k, out):
             None)
 
 
+def work_place_general(a, k, out):
+    """Per 16-byte chunk: the row's line and beg row picks (about 20), the
+    blend 16, bloom mode's pixel tests 40; per block of 32 rows a test of
+    every line (about 12 each).  Bytes: the lines the rows take (each
+    once), beg/end/active, the output, and only the previous rows this data
+    needs — those no line covers, with blend on each covered row's beg
+    row, and in bloom mode the beg rows' bytes under undrawn pixels (an
+    upper count: every covered row's line taken as undrawn where it is)."""
+    from ntsc_crt_tpu_torch.models import demodulate as dem
+    from ntsc_crt_tpu_torch.ops.fixedpoint import host_i32
+    rgb, old, beg, end, active = a
+    B, L, w = rgb.shape[:3]
+    outh = old.shape[1]
+    row = old[0, 0].numel()
+    sl = k["scanlines"]
+    sl = (sl if torch.is_tensor(sl) else torch.full((B,), sl)).cpu()
+    beg, end, active = beg.cpu(), end.cpu(), active.cpu()
+    ce = torch.maximum(beg + 1, end.clamp(max=outh) - sl[:, None])
+    r = torch.arange(outh)[None, :, None]
+    cov = (r >= beg[:, None]) & (r < ce[:, None]) & active[:, None]
+    last = torch.where(cov, torch.arange(L), -1).amax(2)   # (B, outh)
+    covered = last >= 0
+    used = torch.zeros((B, L + 1), dtype=torch.bool)
+    used.scatter_(1, torch.where(covered, last, L), True)
+    old_rows = int((~covered).sum())
+    bl = k["blend"]
+    on = ((bl != 0).cpu() if torch.is_tensor(bl)
+          else torch.full((B,), host_i32(bl) != 0))
+    if bool(on.any()):
+        old_rows += int((covered & on[:, None]).sum())
+    nb = int(used[:, :L].sum()) * row + old_rows * row
+    bloom = k.get("bloom_dx") is not None
+    if bloom:
+        undrawn = (~dem.bloom_drawn(k["bloom_dx"], k["bloom_scan"],
+                                    k["av_len"], w)).sum(-1).cpu()
+        nb += int(torch.gather(undrawn, 1, last.clamp(min=0))[
+            covered & ~on[:, None]].sum()) * 3
+        nb += nbytes(k["bloom_dx"], k["bloom_scan"])
+    n = out.numel() // 16
+    blocks = B * -(-outh // 32)
+    return (nb + nbytes(beg, end, active, out),
+            n * (20 + (16 if bool(on.any()) else 0) + (40 if bloom else 0))
+            + blocks * L * 12, None)
+
+
 def work_hsync(a, k, out):
     """Bytes: the samples each active line's search needs, up to its first
     crossing (the kernel also stages each line's look-ahead span, which the
@@ -666,6 +718,9 @@ def kernel_modules():
         "place_rows_uniform_bloom": Kernel(place, "place_rows_uniform",
                                            place.place_rows_uniform_plain,
                                            work_place),
+        "place_rows_general": Kernel(place, "place_rows_general",
+                                     place.place_rows_general_plain,
+                                     work_place_general),
         "iir_lowpass_rows": Kernel(rowfilters, "iir_lowpass_rows",
                                    rowfilters.iir_lowpass_rows_plain,
                                    work_iir),
@@ -694,13 +749,14 @@ def frames_for(cfg, B, h, w, seed, dev):
                                         dtype=np.uint8), device=dev)
 
 
-def capture_kernel_inputs(pipeline, cfg, B, names, dev, kw, some=False):
+def capture_kernel_inputs(pipeline, cfg, B, names, dev, kw, some=False,
+                          size=(OUTW, OUTH)):
     """The arguments each named kernel's wrapper receives on the second
-    step of a batch-B run (a locked, non-trivial state); some=True: of
-    those the step calls."""
+    step of a batch-B run (a locked, non-trivial state) into a `size`
+    (outw, outh) output; some=True: of those the step calls."""
     mods = kernel_modules()
     imgs = frames_for(cfg, B, 240, 320, B, dev)
-    st = pipeline.init_batch(cfg, B, OUTW, OUTH, device=dev)
+    st = pipeline.init_batch(cfg, B, *size, device=dev)
     with eager_steps(pipeline):
         st = pipeline.step_batch(cfg, st, imgs, *path_args(B, 0, dev),
                                  noise=12, **kw)
@@ -901,6 +957,13 @@ def phase_kernels(pipeline, systems, dev):
                                      "(K8, K9) differs from K2")
                 print(f"unfused chain K8 -> K9 batch {B} ({label}): equals "
                       "K2 at 0 LSB", flush=True)
+    # K6's general mode on the live window's rows: 832x624, 624 rows of
+    # NES's 240 lines, off the uniform gate
+    for B in (*KERNEL_BATCHES, MAIN_BATCH):
+        a, k = capture_kernel_inputs(pipeline, systems.NES, B,
+                                     ("place_rows_general",), dev, {},
+                                     size=LIVE_SIZE)["place_rows_general"]
+        check_kernel("place_rows_general", "NES 832x624", B, a, k, rows)
     phase_scan_kernels(pipeline, systems, dev, (MAIN_BATCH,), rows)
     x = probe.probe_input(PROBE_BLOCKS, dev)
     for pattern in ("eq3", "eq1", "peak"):
@@ -2319,7 +2382,7 @@ def phase_video(pipeline, systems, dev, card):
     from ntsc_crt_tpu_torch.utils import (checkpoint, imageio, native_io,
                                           testcard)
     cfg, vhs = systems.NTSC, systems.NTSCVHS
-    rgb = NTSC_KERNELS[:5]              # without K6 (832x624)
+    rgb = NTSC_KERNELS[:5]              # without K6's uniform mode
     launches = dict.fromkeys(ORIGIN, 0)
 
     def count(label, needed, run):
@@ -2468,8 +2531,8 @@ def phase_video(pipeline, systems, dev, card):
                   f"{kernel_of(n) or n[:40]} {ms:.3f} ({c})"
                   for n, ms, c in rows[:6]) + f"  [{card}]", flush=True)
 
-    # the live session at its default 832x624 (no K6: 624 is not a
-    # multiple of the 240 lines)
+    # the live session at its default 832x624 (K6's general mode: 624 is
+    # not a multiple of the 240 lines)
     img = testcard.test_card()
     a, b = LiveSession(cfg, noise=12), LiveSession(cfg, noise=12)
     a.tick(img)
@@ -2482,14 +2545,15 @@ def phase_video(pipeline, systems, dev, card):
             res[name] = [fn(img) for _ in range(60)]
             res[name + " ms"] = (time.perf_counter() - t0) * 1e3 / 60
         return res
-    res = count("NTSC LiveSession 832x624, 60 tick + 60 tick_fast", rgb,
+    live = rgb + ("place_rows_general",)
+    res = count("NTSC LiveSession 832x624, 60 tick + 60 tick_fast", live,
                 ticks)
     for i, (x, y) in enumerate(zip(res["tick"], res["tick_fast"])):
         if not np.array_equal(x, y):
             raise SystemExit(f"tick_fast differs from tick at tick {i}")
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        rc = count("NTSC term_live.main --frames 30 --no-display", rgb,
+        rc = count("NTSC term_live.main --frames 30 --no-display", live,
                    lambda: term_live.main(["--frames", "30",
                                            "--no-display"]))
     if rc != 0:

@@ -30,6 +30,24 @@
 // row and writes the output once; the ratio slots of a group re-read the
 // same line, which the L2 serves.  Bloom mode adds about 40 integer ops a
 // chunk.
+//
+// General mode (ntsc_place_rows_general): the placement off the uniform
+// gate, ntsc_crt_tpu_torch/models/demodulate.py::_place_rows_general on the
+// card — any outh (832x624's 624 rows of 240 lines, v_fac, a downscale),
+// blend and scanlines per slot.  Output row r of frame b takes the last
+// line l with active[l] and beg[l] <= r < max(beg[l] + 1, min(end[l], outh)
+// - scanlines[b]) (int32, wrapping), or keeps old's row where no line
+// covers it; with blend on for the slot it is (line >> 1) + (old[beg'] >>
+// 1) bytewise, beg' = clamp(beg[l], 0, outh - 1), and in bloom mode a byte
+// of a pixel the line does not draw takes old[beg'] (unblended).  A block
+// takes one frame and a band of GEN_ROWS rows: its threads test every line
+// against the band and keep each row's last covering line in shared
+// memory (an atomicMax a covered row, exact for any beg/end), then stream
+// the band's rows 16 bytes a thread.  old is read only for an uncovered
+// row, a blended slot or an undrawn byte, so with neither blend nor bloom
+// and every row covered the kernel moves the floor's bytes: the lines
+// (duplicates re-read from the L2) and the output written once.  Offsets
+// are 64-bit: the output passes 2^31 elements at B 2048, 832x624.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -147,6 +165,128 @@ void launch(unsigned blocks, int threads, cudaStream_t s, const void* rgb,
         ratio, w3, fp, blend, scanlines, av_len);
 }
 
+constexpr int GEN_ROWS = 32;       // output rows of one frame a block
+constexpr int GEN_THREADS = 256;
+
+template <int VEC, bool BLOOM>
+__global__ void __launch_bounds__(GEN_THREADS) place_rows_general_kernel(
+    const uint8_t* __restrict__ rgb,       // (B, L, w3)
+    const uint8_t* __restrict__ old,       // (B, outh, w3)
+    const int* __restrict__ beg,           // (B, L)
+    const int* __restrict__ end,           // (B, L)
+    const uint8_t* __restrict__ active,    // (B, L) bool
+    const int* __restrict__ blend_b,       // (B,), or null: blend_i
+    const int* __restrict__ scan_b,        // (B,), or null: scan_i
+    const int* __restrict__ bloom_dx,      // (B, L)
+    const int* __restrict__ bloom_scan,    // (B, L)
+    uint8_t* __restrict__ out,             // (B, outh, w3)
+    int L, int outh, int w3, int bands, int blend_i, int scan_i,
+    int av_len) {
+    __shared__ int line[GEN_ROWS];         // each band row's line, or -1
+    const long long b = blockIdx.x / bands;
+    const int r0 = (int)(blockIdx.x % bands) * GEN_ROWS;
+    const int nr = min(GEN_ROWS, outh - r0);
+    for (int r = threadIdx.x; r < GEN_ROWS; r += blockDim.x) line[r] = -1;
+    __syncthreads();
+    const long long lb = b * L;
+    const int sl = scan_b ? scan_b[b] : scan_i;
+    for (int l = threadIdx.x; l < L; l += blockDim.x) {
+        if (!active[lb + l]) continue;
+        const int bl = beg[lb + l];
+        const int ec = min(end[lb + l], outh);
+        // max(beg + 1, end_c - scanlines) in wrapping int32
+        const int ce = max((int)((unsigned)bl + 1u),
+                           (int)((unsigned)ec - (unsigned)sl));
+        const int hi = min(ce, r0 + nr);
+        for (int r = max(bl, r0); r < hi; ++r) atomicMax(&line[r - r0], l);
+    }
+    __syncthreads();
+
+    const bool mix = (blend_b ? blend_b[b] : blend_i) != 0;
+    const int nc = w3 / VEC;
+    const long long frame = b * outh;
+    const unsigned full = VEC == 16 ? 0xFFFFu : 1u;
+    for (int i = threadIdx.x; i < nr * nc; i += blockDim.x) {
+        const int rr = i / nc;
+        const long long c = (long long)(i - rr * nc) * VEC;
+        const int l = line[rr];
+        uint8_t* d = out + (frame + r0 + rr) * w3 + c;
+        if (l < 0) {                       // no line covers the row
+            const uint8_t* o = old + (frame + r0 + rr) * w3 + c;
+            if constexpr (VEC == 16)
+                *reinterpret_cast<uint4*>(d) =
+                    *reinterpret_cast<const uint4*>(o);
+            else
+                *d = *o;
+            continue;
+        }
+        const uint8_t* s = rgb + (lb + l) * w3 + c;
+        const int bsel = min(max(beg[lb + l], 0), outh - 1);
+        const uint8_t* ob = old + (frame + bsel) * w3 + c;
+        unsigned dm = full;                // bit i: byte c + i is drawn
+        if (BLOOM) {
+            const int dx = bloom_dx[lb + l], sc = bloom_scan[lb + l];
+            const int lim = (av_len - 1) << 12;
+            if constexpr (VEC == 16) {
+                const int p0 = (int)(c / 3), q0 = (int)(c - 3LL * p0);
+                unsigned rep = 0;
+#pragma unroll
+                for (int q = 0; q < 6; ++q)
+                    rep |= drawn(sc, dx, p0 + q, lim) ? 7u << (3 * q) : 0u;
+                dm = (rep >> q0) & 0xFFFFu;
+            } else {
+                dm = drawn(sc, dx, (int)(c / 3), lim);
+            }
+        }
+        const bool need_ob = mix || dm != full;
+        if constexpr (VEC == 16) {
+            uint4 v = *reinterpret_cast<const uint4*>(s);
+            if (need_ob) {
+                const uint4 w = *reinterpret_cast<const uint4*>(ob);
+                if (mix) {
+                    v.x = half_sum(v.x, w.x);
+                    v.y = half_sum(v.y, w.y);
+                    v.z = half_sum(v.z, w.z);
+                    v.w = half_sum(v.w, w.w);
+                }
+                if (BLOOM) {   // bytes not drawn take old[beg']
+                    unsigned m = byte_mask(dm & 15u);
+                    v.x = (v.x & m) | (w.x & ~m);
+                    m = byte_mask((dm >> 4) & 15u);
+                    v.y = (v.y & m) | (w.y & ~m);
+                    m = byte_mask((dm >> 8) & 15u);
+                    v.z = (v.z & m) | (w.z & ~m);
+                    m = byte_mask(dm >> 12);
+                    v.w = (v.w & m) | (w.w & ~m);
+                }
+            }
+            *reinterpret_cast<uint4*>(d) = v;
+        } else {
+            unsigned v = *s;
+            if (need_ob) {
+                const unsigned w = *ob;
+                if (mix) v = (v >> 1) + (w >> 1);
+                if (BLOOM && !dm) v = w;
+            }
+            *d = (uint8_t)v;
+        }
+    }
+}
+
+template <int VEC, bool BLOOM>
+void launch_general(unsigned blocks, cudaStream_t s, const void* rgb,
+                    const void* old, const void* beg, const void* end,
+                    const void* active, const void* blend,
+                    const void* scanlines, const void* bloom_dx,
+                    const void* bloom_scan, void* out, int L, int outh,
+                    int w3, int bands, int blend_i, int scan_i, int av_len) {
+    place_rows_general_kernel<VEC, BLOOM><<<blocks, GEN_THREADS, 0, s>>>(
+        (const uint8_t*)rgb, (const uint8_t*)old, (const int*)beg,
+        (const int*)end, (const uint8_t*)active, (const int*)blend,
+        (const int*)scanlines, (const int*)bloom_dx, (const int*)bloom_scan,
+        (uint8_t*)out, L, outh, w3, bands, blend_i, scan_i, av_len);
+}
+
 }  // namespace
 
 // rgb uint8 (B, L, w3); old, out uint8 (B, ratio*L, w3); field_px int32
@@ -173,5 +313,39 @@ extern "C" int ntsc_place_rows_uniform(const void* rgb, const void* old,
                   : (bloom ? launch<1, true> : launch<1, false>);
     go(blocks, threads, s, rgb, old, field_px, bloom_dx, bloom_scan, out, B,
        L, ratio, w3, fp, blend, scanlines, av_len);
+    return (int)cudaGetLastError();
+}
+
+// rgb uint8 (B, L, w3); old, out uint8 (B, outh, w3); beg, end int32 (B,
+// L); active bool (B, L); blend, scanlines int32 (B,) each, or null for
+// the host value blend_i / scan_i on every slot; bloom_dx, bloom_scan
+// int32 (B, L), both null outside bloom mode; av_len (bloom)
+extern "C" int ntsc_place_rows_general(const void* rgb, const void* old,
+                                       const void* beg, const void* end,
+                                       const void* active, const void* blend,
+                                       const void* scanlines,
+                                       const void* bloom_dx,
+                                       const void* bloom_scan, void* out,
+                                       int B, int L, int outh, int w3,
+                                       int blend_i, int scan_i, int av_len,
+                                       void* stream) {
+    const bool bloom = bloom_dx != nullptr;
+    if (bloom != (bloom_scan != nullptr) ||
+        (bloom && (av_len < 1 || av_len > (1 << 19))) || B < 0 || L < 1 ||
+        outh < 1 || w3 < 1 || (long long)GEN_ROWS * w3 > 0x7FFFFFFFLL)
+        return (int)cudaErrorInvalidValue;
+    const int bands = (outh + GEN_ROWS - 1) / GEN_ROWS;
+    const long long blocks = (long long)B * bands;
+    if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    if (blocks == 0) return 0;
+    const bool vec = w3 % 16 == 0 && (uintptr_t)rgb % 16 == 0 &&
+                     (uintptr_t)old % 16 == 0 && (uintptr_t)out % 16 == 0;
+    auto go = vec ? (bloom ? launch_general<16, true>
+                           : launch_general<16, false>)
+                  : (bloom ? launch_general<1, true>
+                           : launch_general<1, false>);
+    go((unsigned)blocks, static_cast<cudaStream_t>(stream), rgb, old, beg,
+       end, active, blend, scanlines, bloom_dx, bloom_scan, out, L, outh, w3,
+       bands, blend_i, scan_i, av_len);
     return (int)cudaGetLastError();
 }

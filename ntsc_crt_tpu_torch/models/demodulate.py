@@ -24,9 +24,9 @@ CRT_DO_HSYNC = 0).  Each stage keeps one formulation, the plain one:
    the one stage split by line over a spatial group of cards
    (parallel/spatial.py); the others run whole on the frame's card.
 5. **Row placement** — kernel K6 where every line covers the same number
-   of rows and the knobs are host ints; otherwise each output row takes the
-   last line that covers it, blended with the previous frame if asked
-   (crt_core.c:552-664).
+   of rows and the knobs are host ints; otherwise K6's general mode: each
+   output row takes the last line that covers it, blended with the
+   previous frame if asked (crt_core.c:552-664).
 
 Under a profiler each stage records its span (``utils/profiling.py``
 ``span``): ``ntsc.demodulate.noise``, ``.vsync``, ``.line_scan``, with
@@ -63,8 +63,9 @@ from ntsc_crt_tpu_torch.utils import profiling
 
 Knob = Union[int, torch.Tensor]
 # _place_rows calls by the path each took: "uniform" (K6), "uniform_bloom"
-# (K6's bloom mode) or "general" (_place_rows_general); counted in the
-# call, which graphs.eager makes on every replay too
+# (K6's bloom mode) or "general" (K6's general mode, on the CPU
+# _place_rows_general); counted in the call, which graphs.eager makes on
+# every replay too
 PLACEMENTS: collections.Counter = collections.Counter()
 
 
@@ -461,8 +462,9 @@ def _place_rows(rgb, out_prev, beg_l, end_l, active_l, blend, scanlines,
     scanlines < ratio = (outh + v_fac) // L — when also outh == ratio * L;
     bloom's lines (`bloom`: K6's bloom_dx, bloom_scan and av_len) in its
     bloom mode, where JAX's gate sends them to the general path.
-    Otherwise _place_rows_general, with bloom's `valid` plane."""
-    L = rgb.shape[1]
+    Otherwise K6's general mode, place.place_rows_general: on a CPU
+    tensor _place_rows_general with bloom's `valid` plane."""
+    B, L = rgb.shape[0], rgb.shape[1]
     host = (int, np.integer)
     if (field_px is not None and isinstance(blend, host)
             and isinstance(scanlines, host) and (outh + v_fac) % L == 0):
@@ -475,10 +477,13 @@ def _place_rows(rgb, out_prev, beg_l, end_l, active_l, blend, scanlines,
                 scanlines=int(scanlines), ratio=ratio, fp=fp,
                 **(bloom or {}))
     PLACEMENTS["general"] += 1
-    valid = None if bloom is None else bloom_drawn(**bloom,
-                                                   outw=rgb.shape[2])
-    return _place_rows_general(rgb, out_prev, beg_l, end_l, active_l, blend,
-                               scanlines, outh, valid=valid)
+
+    def knob(x):
+        return x if isinstance(x, host) else _b(x, B, rgb.device)
+    return place.place_rows_general(
+        rgb, out_prev, beg_l.contiguous(), end_l.contiguous(),
+        active_l.contiguous(), blend=knob(blend), scanlines=knob(scanlines),
+        **(bloom or {}))
 
 
 def _place_rows_general(rgb, out_prev, beg_l, end_l, active_l, blend,

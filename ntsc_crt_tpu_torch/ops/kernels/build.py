@@ -39,6 +39,7 @@ _SIGNATURES = {
     "ntsc_decode_rows": "p" * 11 + "i" * 9 + "p",
     "ntsc_bloom_line_width": "ppppp" + "i" * 5 + "p",
     "ntsc_place_rows_uniform": "p" * 6 + "i" * 8 + "p",
+    "ntsc_place_rows_general": "p" * 10 + "i" * 7 + "p",
     "ntsc_ccf_ema": "pppppp" + "i" * 5 + "p",
     "ntsc_vhs_region_b_entries": "pp" + "i" * 3 + "p",
     "ntsc_inject_noise": "p" * 7 + "i" * 6 + "p",
@@ -54,7 +55,8 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 _lib = None
 # launches since the process started or a reader reset them, by entry point
 # without its "ntsc_" and, where the entry point has modes, by mode
-# ("decode_rows_conv", "decode_rows_bloom", "place_rows_uniform_bloom";
+# ("decode_rows_conv", "decode_rows_bloom", "place_rows_uniform_bloom",
+# "place_rows_general_bloom";
 # K1's field mode is its own entry point, "encode_rows_field"):
 # the kernels' names in chip_smoke.py and profiling.kernel_of
 LAUNCHES: collections.Counter = collections.Counter()

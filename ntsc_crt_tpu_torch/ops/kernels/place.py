@@ -20,11 +20,22 @@ which the JAX package leaves to XLA's gathers.
 Replaces ``ntsc_crt_tpu/ops/pallas/place_rows.py::place_rows_uniform`` and
 ``place_rows_uniform_tiled``.  A CPU tensor runs the plain torch version
 below (the stacked form); a CUDA tensor launches csrc/place.cu.
+
+``place_rows_general`` is K6's general mode, the placement off that gate
+(any outh: the live 832x624 window's 624 rows of 240 lines, v_fac, a
+downscale; blend and scanlines per slot): each output row takes the last
+line that covers it, ``models/demodulate.py::_place_rows_general``, which
+is its plain version on a CPU tensor (with ``bloom_drawn``'s `valid`
+plane in bloom mode); a CUDA tensor launches csrc/place.cu's
+``ntsc_place_rows_general``, which works out each row's line itself.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ntsc_crt_tpu_torch.ops.fixedpoint import host_i32
 
 
 def place_rows_uniform(rgb: torch.Tensor, old: torch.Tensor,
@@ -114,3 +125,84 @@ def place_rows_uniform_plain(rgb, old, field_px, *, blend: bool,
         planes.append(torch.where(keep[..., None, None], old_stk[:, :, j],
                                   src))
     return torch.stack(planes, dim=2).reshape(B, ratio * L, w, 3)
+
+
+def place_rows_general(rgb: torch.Tensor, old: torch.Tensor,
+                       beg_l: torch.Tensor, end_l: torch.Tensor,
+                       active_l: torch.Tensor, *, blend, scanlines,
+                       bloom_dx: torch.Tensor = None,
+                       bloom_scan: torch.Tensor = None,
+                       av_len: int = None) -> torch.Tensor:
+    """rgb uint8 (B, L, w, 3) decoded lines; old uint8 (B, outh, w, 3) the
+    previous output; beg_l, end_l int32 (B, L) each line's first row and
+    the row past its last, active_l bool (B, L); blend and scanlines each a
+    host int or an int32 (B,) tensor; bloom_dx/bloom_scan int32 (B, L) and
+    the host av_len, together, for bloom lines.  Returns the new uint8 (B,
+    outh, w, 3) output: row r takes the last active line l with beg_l <= r
+    < max(beg_l + 1, min(end_l, outh) - scanlines), or keeps old's row."""
+    B, L, w, _ = rgb.shape
+    outh = old.shape[1]
+    want = dict(rgb=(rgb, torch.uint8, (B, L, w, 3)),
+                old=(old, torch.uint8, (B, outh, w, 3)),
+                beg_l=(beg_l, torch.int32, (B, L)),
+                end_l=(end_l, torch.int32, (B, L)),
+                active_l=(active_l, torch.bool, (B, L)))
+    for name, x in (("blend", blend), ("scanlines", scanlines)):
+        if torch.is_tensor(x):
+            want[name] = (x, torch.int32, (B,))
+        elif not isinstance(x, (int, np.integer)):
+            raise TypeError(f"place_rows_general: {name} must be a host int "
+                            f"or an int32 (B,) tensor, got {type(x)}")
+    bloom = bloom_dx is not None
+    if bloom != (bloom_scan is not None) or bloom != (av_len is not None):
+        raise ValueError("place_rows_general: bloom_dx, bloom_scan and "
+                         "av_len go together")
+    if bloom:
+        want.update(bloom_dx=(bloom_dx, torch.int32, (B, L)),
+                    bloom_scan=(bloom_scan, torch.int32, (B, L)))
+        if not 1 <= av_len <= 1 << 19:     # (av_len - 1) << 12 fits int32
+            raise ValueError(f"place_rows_general: bad av_len={av_len}")
+    if min(L, outh, w) < 1:
+        raise ValueError(f"place_rows_general: bad L={L} outh={outh} w={w}")
+    for name, (x, dtype, shape) in want.items():
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"place_rows_general: {name} must be {dtype} "
+                             f"{shape}, got {x.dtype} {tuple(x.shape)}")
+    kw = dict(blend=blend, scanlines=scanlines, bloom_dx=bloom_dx,
+              bloom_scan=bloom_scan, av_len=av_len)
+    if rgb.device.type == "cpu":
+        return place_rows_general_plain(rgb, old, beg_l, end_l, active_l,
+                                        **kw)
+    from ntsc_crt_tpu_torch.ops.kernels import build  # CUDA path only
+
+    dev = rgb.device
+    for name, (x, dtype, shape) in want.items():
+        build.check(name, x, dtype, shape, dev)
+
+    def knob(x):        # (pointer, host value)
+        return (x.data_ptr(), 0) if torch.is_tensor(x) else (None,
+                                                             host_i32(x))
+    (blend_p, blend_i), (scan_p, scan_i) = knob(blend), knob(scanlines)
+    out = torch.empty_like(old)
+    build.launch("ntsc_place_rows_general", dev, rgb.data_ptr(),
+                 old.data_ptr(), beg_l.data_ptr(), end_l.data_ptr(),
+                 active_l.data_ptr(), blend_p, scan_p,
+                 bloom_dx.data_ptr() if bloom else None,
+                 bloom_scan.data_ptr() if bloom else None, out.data_ptr(), B,
+                 L, outh, w * 3, blend_i, scan_i, av_len if bloom else 0,
+                 mode="bloom" if bloom else None)
+    return out
+
+
+def place_rows_general_plain(rgb, old, beg_l, end_l, active_l, *, blend,
+                             scanlines, bloom_dx=None, bloom_scan=None,
+                             av_len: int = None) -> torch.Tensor:
+    """``demodulate._place_rows_general`` with the same arguments as
+    place_rows_general; bloom lines become its `valid` plane
+    (``demodulate.bloom_drawn``)."""
+    from ntsc_crt_tpu_torch.models import demodulate as dem  # it imports us
+
+    valid = (None if bloom_dx is None else
+             dem.bloom_drawn(bloom_dx, bloom_scan, av_len, rgb.shape[2]))
+    return dem._place_rows_general(rgb, old, beg_l, end_l, active_l, blend,
+                                   scanlines, old.shape[1], valid=valid)

@@ -135,6 +135,7 @@ KERNEL_FUNCS = (("encode_rows_kernel", "encode_rows"),
                 ("inject_noise_kernel", "inject_noise"),
                 ("vhs_noise_bc_kernel", "vhs_noise_bc"),
                 ("place_rows_kernel", "place_rows_uniform"),
+                ("place_rows_general_kernel", "place_rows_general"),
                 ("nes_square_kernel", "nes_square"))
 
 
@@ -145,7 +146,8 @@ def kernel_of(event: str):
             if name == "decode_rows" and "Fir" in event:
                 return "decode_rows_conv"
             flag = "true" in event or "Lb1E" in event
-            if name in ("decode_rows", "place_rows_uniform") and flag:
+            if name in ("decode_rows", "place_rows_uniform",
+                        "place_rows_general") and flag:
                 return f"{name}_bloom"
             if name == "encode_rows" and flag:
                 return "encode_rows_field"

@@ -160,9 +160,9 @@ def test_the_cells_step_replays_one_k13_and_one_general_placement():
     """Five B 2048 steps of the cell at 832x624 (the output past 2^31
     elements) through the CUDA graphs: a first eager step, a capture,
     three replays; each launches K13 once and places its rows by the
-    general path once (counted in the eager call, replays included), with
-    no K6; the last replay equals the step run op by op from the same
-    state, every state field."""
+    general path once, K6's general mode (counted in the eager call,
+    replays included), with no uniform K6; the last replay equals the step
+    run op by op from the same state, every state field."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels compile and run only "
                     "there")
@@ -191,6 +191,8 @@ def test_the_cells_step_replays_one_k13_and_one_general_placement():
             graphs.GRAPHS["replays"]) == (1, 1, 2), dict(graphs.GRAPHS)
     assert build.LAUNCHES["nes_square"] == steps - 1
     assert dict(dem.PLACEMENTS) == {"general": steps - 1}
+    assert build.LAUNCHES["place_rows_general"] == steps - 1
+    assert build.LAUNCHES["place_rows_uniform"] == 0
     want = pipeline.step.__wrapped__(
         NES, st, img, field=table[steps - 1][0], frame=table[steps - 1][1],
         dot_crawl_offset=table[steps - 1][2], noise=NOISE, mon=mon)
@@ -203,6 +205,7 @@ def test_the_cells_step_replays_one_k13_and_one_general_placement():
         (dict(graphs.GRAPHS), graphs.FAILURES)
     assert build.LAUNCHES["nes_square"] == 1
     assert build.LAUNCHES["place_rows_uniform"] == 0
+    assert build.LAUNCHES["place_rows_general"] == 1
     assert dict(dem.PLACEMENTS) == {"general": 1}
     for name, a, b in zip(ref.CRTState._fields, got, want):
         assert torch.equal(a, b), name
